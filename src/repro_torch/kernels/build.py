@@ -1,0 +1,119 @@
+"""Builder and loader of the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for Hopper (``sm_90a``) into its own shared library, which is loaded with
+``ctypes``.  The build runs at first use, into ``_build/`` beside this file
+(listed in ``.gitignore``), under a directory keyed by a hash of the sources
+and the flags, so a changed source is rebuilt and an unchanged one is
+loaded as it is.  Only the sources in the package are compiled.
+
+Nothing here runs at import: the CPU tests import every module on a host
+without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+# One entry per kernel library: name -> C functions and their signatures
+# (argtypes, restype).  Pointers and the stream are c_void_p, sizes c_int.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "gs_stencil": {
+        "gs_stencil_num_partials": ((_I, _I), _I),
+        "gs_stencil_f32": ((_P,) * 12 + (_I, _I, _P), _I),
+        "gs_stencil_bf16": ((_P,) * 12 + (_I, _I, _P), _I),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit on PATH or under /usr/local/cuda")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_ROOT / key[:16] / f"lib{name}.so"
+
+
+def _start(name: str, target: Path) -> subprocess.Popen:
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, target: Path, proc: subprocess.Popen) -> str:
+    out, _ = proc.communicate()
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    os.replace(tmp, target)       # atomic: a reader never sees half a file
+    return out
+
+
+def build(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, str]:
+    """Compile every named kernel library that is not built yet, one
+    ``nvcc`` per source, all started together.  Returns each compiled
+    library's ``nvcc`` output (``-Xptxas -v``: registers, shared memory,
+    spills); already built libraries are absent from it."""
+    with _lock:
+        targets = {n: _target(n) for n in names}
+        procs = {n: _start(n, t) for n, t in targets.items()
+                 if not t.exists()}
+        try:
+            return {n: _finish(n, targets[n], p) for n, p in procs.items()}
+        finally:
+            for p in procs.values():      # after a failure: stop the rest
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed, with
+    ``argtypes``/``restype`` declared for every C function."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

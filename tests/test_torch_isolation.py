@@ -1,0 +1,74 @@
+"""``repro_torch`` stands alone: it imports neither ``jax`` nor anything of
+the JAX package ``repro``, and its entry points default to CUDA and raise
+on a host without it.  Both checks run in a fresh interpreter."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = r"""
+import importlib, importlib.abc, json, pkgutil, runpy, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro", "benchmarks"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+runpy.run_path(sys.argv[1], run_name="chip_smoke_imported")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"))
+
+# the entry point with no device on a host without CUDA
+import torch
+from repro_torch.bench import gauss_seidel as gs
+try:
+    gs.run_real("pure", n_ranks=1, nby=1, nbx=1, bs=4, iters=1)
+    no_device = "ran"
+except RuntimeError as e:
+    no_device = "raised: " + str(e)
+print(json.dumps({"modules": mods, "bad": bad, "cuda": torch.cuda
+                  .is_available(), "no_device": no_device}))
+"""
+
+
+@pytest.fixture(scope="module")
+def isolated():
+    """One fresh interpreter with ``jax``/``repro`` imports blocked and no
+    visible CUDA device; its report as a dict."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL, str(ROOT / "chip_smoke.py")],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax_and_no_reference_package(isolated):
+    out = isolated
+    assert out["bad"] == []
+    for mod in ("repro_torch.core.tac", "repro_torch.core.collectives",
+                "repro_torch.kernels.collective_stages",
+                "repro_torch.kernels.build",
+                "repro_torch.bench.gauss_seidel", "repro_torch.obs.trace"):
+        assert mod in out["modules"]
+
+
+def test_entry_point_without_device_raises_on_cuda_less_host(isolated):
+    assert isolated["cuda"] is False
+    assert isolated["no_device"].startswith("raised:")
+    assert "device='cpu'" in isolated["no_device"]
