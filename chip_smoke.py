@@ -27,10 +27,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    blocks larger than the L2 cache so every launch reads cold data): device
    time per call from CUDA-graph replay (``ms``, ``plain_ms``) and the
    eager wrapper's time as the main path pays it (``wrapper_ms``).
+6. Level-A collectives on CUDA tensors: allreduce, reduce_scatter and a
+   persistent plan over 4 ranks return CUDA tensors, bitwise equal to the
+   same run on CPU tensors and within rtol 1e-6 of a float64 sum.
+7. The Level-B stage kernels against their plain versions on the card,
+   bitwise: ``fused_combine`` in every variant (acc fp32/bf16 x got
+   fp32/bf16/int8+scale x accumulate, and in place) at lengths 1, 257,
+   1031, 2^20+3 and the main path's fused-mode ring chunk;
+   ``quantize_wire`` (fp32 and bf16 input, values on exact .5 boundaries
+   rounding half to even) and ``dequantize_wire`` to fp32 and bf16.
+8. The Level-B main path: ``bench.overlap.run_sync`` on hubert-xlarge's
+   gradient tree (944,611,840 parameters, 13 leaves) on 4 logical ranks —
+   fused, bucketed and sentinel rings with ``stage_impl="cuda"``, fused
+   with bf16 and int8 wires, doubling and hierarchical 2 x 2, each beside
+   a plain (``None``, fp32 wire) or ``"ref"`` (bf16, int8 wires) twin on
+   the same inputs.  All ranks bitwise equal; every ``"cuda"`` run
+   bitwise equal to its twin; bucketed equal to sentinel; every leaf
+   within its stated
+   tolerance of a float64 mean; ``ppermute`` calls, sentinel waits and
+   kernel launches equal to the counts derived from the schedule and the
+   7 buckets.
+9. Timing of the three stage kernels at the main path's chunk shapes, as
+   in phase 5, beside one PyTorch call computing the same function
+   (``library_ms``): ``torch.add``, ``torch.add(alpha=scale)``,
+   ``torch.quantize_per_tensor`` (eager) and ``torch.mul``.
 
-Prints the per-version wall time, the ``kernels`` JSON line, the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.  It
-imports nothing of the JAX package.
+Prints the per-version wall time, the wall time of each ``sync_grads``
+run, the ``kernels`` JSON line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  It imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +72,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 # Main-path size: a 2^28-point heat-equation domain (1 GiB per fp32
 # generation) on 4 logical ranks in a 2 x 2 grid of 8 x 8 blocks each.
 GRID, BLOCK, N_RANKS, ITERS, WORKERS = 16384, 1024, 4, 5, 4
+# Level-B main path: hubert-xlarge's gradient (944,611,840 parameters) on
+# 4 logical ranks; the fused-mode ring chunk is a quarter of it, and the
+# bucketed mode's chunks are an attention and an MLP weight bucket.
+HUBERT_PARAMS = 944_611_840
+FUSED_CHUNK = HUBERT_PARAMS // N_RANKS
+BUCKET_CHUNKS = ((1280 * 2 + 48 * 1280 * 1280) // N_RANKS,
+                 (48 * 1280 * 2 + 48 * 5120 * 1280) // N_RANKS)
+STAGE_LENGTHS = (1, 257, 1031, (1 << 20) + 3, FUSED_CHUNK)
+# Tolerances of a sync_grads result against the float64 mean, as
+# max|result - mean| / max|mean| per leaf: an fp32 wire rounds fp32 leaves
+# at the last bit and bf16 leaves at bf16's (2^-8); the narrow wires as
+# the JAX package's lowering test states them.
+SYNC_RTOL = {None: {"float32": 1e-6, "bfloat16": 2 ** -8},
+             "bf16": {"float32": 2e-2, "bfloat16": 2e-2},
+             "int8": {"float32": 5e-2, "bfloat16": 5e-2}}
 # H100 SXM published peaks (NVIDIA's data sheet, at the 700 W limit): HBM
 # bytes/s and fp32 (non-tensor-core) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -262,6 +301,375 @@ def time_gs_stencil(stages, ref, device):
     return t
 
 
+def level_a_tensors(device) -> None:
+    """Phase 6: Level-A collectives keep tensor payloads on the card."""
+    import torch
+    from repro_torch.core import Collectives, tac
+    rng = np.random.default_rng(6)
+    host = [rng.standard_normal(1 << 20).astype(np.float32)
+            for _ in range(N_RANKS)]
+    want = np.sum(np.stack(host).astype(np.float64), axis=0)
+    for name, kw in (("allreduce", {}), ("allreduce", {"segments": 4}),
+                     ("reduce_scatter", {}),
+                     ("allreduce", {"algorithm": "doubling"})):
+        outs = {}
+        for dev in (device, torch.device("cpu")):
+            coll = Collectives(tac.CommWorld(N_RANKS))
+            outs[dev.type] = coll.run_group(
+                name, [{"value": torch.from_numpy(h).to(dev)} for h in host],
+                **kw)
+        for r, (g, c) in enumerate(zip(outs["cuda"], outs["cpu"])):
+            if not (isinstance(g, torch.Tensor) and g.is_cuda):
+                raise AssertionError(f"Level-A {name} {kw}: rank {r} got "
+                                     f"{type(g).__name__} off the card")
+            if not torch.equal(g.cpu(), c):
+                raise AssertionError(f"Level-A {name} {kw}: card and CPU "
+                                     f"differ at rank {r}")
+            ref = (want if name == "allreduce"
+                   else np.array_split(want, N_RANKS)[r])
+            if not np.allclose(g.cpu().double().numpy(), ref, rtol=1e-6,
+                               atol=1e-6):
+                raise AssertionError(f"Level-A {name} {kw}: rank {r} is not "
+                                     f"the float64 sum")
+    coll = Collectives(tac.CommWorld(N_RANKS))
+    plan = coll.persistent("allreduce")
+    for it in range(2):
+        got = plan.run_group([torch.from_numpy(h).to(device) for h in host])
+        for g in got:
+            if not g.is_cuda or not np.allclose(g.cpu().double().numpy(),
+                                                want, rtol=1e-6, atol=1e-6):
+                raise AssertionError(f"Level-A persistent allreduce, "
+                                     f"iteration {it}: wrong or off the card")
+    log("Level-A on CUDA tensors: allreduce (ring, segmented, doubling), "
+        "reduce_scatter and a persistent plan return CUDA tensors, bitwise "
+        "equal to the CPU run, rtol 1e-6 of the float64 sum")
+
+
+def _stage_inputs(m: int, device, seed: int = 0):
+    """acc/got for every combine variant at length ``m``, from a seed."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=device)
+    gen.manual_seed(m + seed)
+    acc32 = torch.randn(m, generator=gen, device=device)
+    got32 = torch.randn(m, generator=gen, device=device) * 3.0
+    q, scale = ops.quantize_stage(got32, impl="ref")
+    accs = {"fp32": acc32, "bf16": acc32.to(torch.bfloat16)}
+    gots = {"fp32": (got32, None), "bf16": (got32.to(torch.bfloat16), None),
+            "int8": (q, scale)}
+    return accs, gots
+
+
+def _max_abs_diff(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def check_stage_kernels(stages, ref, device,
+                        lengths=STAGE_LENGTHS) -> dict:
+    """Phase 7: each Level-B stage kernel bitwise against its plain version
+    on the card; returns each kernel's largest |kernel - plain| over every
+    variant and length."""
+    import torch
+    from repro_torch.kernels import ops
+    worst = {"fused_combine": 0.0, "quantize_wire": 0.0,
+             "dequantize_wire": 0.0}
+
+    def held(name, k, p, what):
+        worst[name] = max(worst[name], _max_abs_diff(k, p))
+        if k.dtype != p.dtype or not torch.equal(k, p):
+            raise AssertionError(f"{name} {what}: kernel differs from plain")
+
+    for m in lengths:
+        accs, gots = _stage_inputs(m, device)
+        n_var = 0
+        for an, acc in accs.items():
+            for gn, (got, scale) in gots.items():
+                for accumulate in (True, False):
+                    k = stages.fused_combine(acc, got, scale,
+                                             accumulate=accumulate)
+                    p = ref.combine_stage(acc, got, scale,
+                                          accumulate=accumulate)
+                    if k.dtype != acc.dtype:
+                        raise AssertionError(f"fused_combine acc {an}: "
+                                             f"result dtype {k.dtype}")
+                    held("fused_combine", k, p, f"acc {an} got {gn} "
+                         f"accumulate {accumulate} m={m}")
+                    n_var += 1
+                    del k, p
+                inplace = acc.clone()
+                stages.fused_combine(inplace, got, scale, out=inplace)
+                held("fused_combine", inplace,
+                     ref.combine_stage(acc, got, scale),
+                     f"in place acc {an} got {gn} m={m}")
+                del inplace
+        x32 = gots["fp32"][0]
+        for xn, x in (("fp32", x32), ("bf16", gots["bf16"][0])):
+            scale = ops.wire_scale(x)
+            held("quantize_wire", stages.quantize_wire(x, scale),
+                 ref.quantize_stage(x, scale), f"{xn} m={m}")
+        q, scale = gots["int8"]
+        for dt in (torch.float32, torch.bfloat16):
+            held("dequantize_wire", stages.dequantize_wire(q, scale, dt),
+                 ref.dequantize_stage(q, scale, dt), f"{dt} m={m}")
+        torch.cuda.synchronize()
+        del accs, gots, x32, q
+        log(f"stage kernels m={m}: fused_combine {n_var} variants + in "
+            f"place, quantize_wire fp32/bf16, dequantize_wire fp32/bf16 "
+            f"bitwise equal to plain")
+    # exact .5 boundaries: scale = 15.875 / 127 = 0.125 exactly, so
+    # x / scale lands on k + 0.5 and must round half to even
+    half = torch.arange(-127, 127, dtype=torch.float32) + 0.5
+    x = torch.cat([half * 0.125, torch.tensor([15.875, -15.875])]).to(device)
+    q, scale = ops.quantize_stage(x, impl="cuda")
+    held("quantize_wire", q, ref.quantize_stage(x, scale), ".5 boundaries")
+    want = torch.round(half).clamp(-127, 127).to(torch.int8)
+    if scale.item() != 0.125 or not torch.equal(q[:254].cpu(), want):
+        raise AssertionError("quantize_wire: .5 boundaries do not round "
+                             "half to even")
+    log("quantize_wire: 256 values on exact .5 boundaries round half to "
+        "even, equal to plain")
+    log(f"stage kernels: max |kernel - plain| {worst}")
+    return worst
+
+
+def _leaf_rel_errors(result, grads, step: int = 1 << 25):
+    """max|result - float64 mean| / max|mean| per leaf, the mean built in
+    float64 leaf by leaf, ``step`` elements at a time."""
+    from repro_torch.core.overlap import tree_flatten
+    res, _ = tree_flatten(result)
+    per_rank = [[l.reshape(-1) for l in tree_flatten(g)[0]] for g in grads]
+    errs = []
+    for i, leaf in enumerate(res):
+        leaf = leaf.reshape(-1)
+        err = top = 0.0
+        for a in range(0, leaf.numel(), step):
+            mean = per_rank[0][i][a:a + step].double()
+            for r in range(1, len(grads)):
+                mean += per_rank[r][i][a:a + step]
+            mean /= len(grads)
+            err = max(err, float((leaf[a:a + step] - mean).abs().max()))
+            top = max(top, float(mean.abs().max()))
+        errs.append((str(leaf.dtype)[6:], err / top))
+    return errs
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+    from repro_torch.core.overlap import tree_flatten
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+# The Level-B main path's runs: (label, run_sync keyword arguments).
+SYNC_RUNS = (
+    ("fused ring cuda", dict(mode="fused")),
+    ("fused ring None", dict(mode="fused", stage_impl=None)),
+    ("bucketed ring cuda", dict(mode="bucketed")),
+    ("bucketed ring None", dict(mode="bucketed", stage_impl=None)),
+    ("sentinel ring cuda", dict(mode="sentinel")),
+    ("fused ring cuda bf16-wire", dict(mode="fused", stage_wire="bf16")),
+    ("fused ring ref bf16-wire", dict(mode="fused", stage_impl="ref",
+                                      stage_wire="bf16")),
+    ("fused ring cuda int8-wire", dict(mode="fused", stage_wire="int8")),
+    ("fused ring ref int8-wire", dict(mode="fused", stage_impl="ref",
+                                      stage_wire="int8")),
+    ("fused doubling cuda", dict(mode="fused", algorithm="doubling")),
+    ("fused doubling None", dict(mode="fused", algorithm="doubling",
+                                 stage_impl=None)),
+    ("fused hierarchical-2x2 cuda", dict(mode="fused", hierarchical=True)),
+    ("fused hierarchical-2x2 None", dict(mode="fused", hierarchical=True,
+                                         stage_impl=None)),
+)
+# label -> the earlier run it must equal bitwise: every configuration that
+# launches fused_combine has a plain (None) or "ref" twin on the same inputs
+SYNC_EQUAL = {"fused ring None": "fused ring cuda",
+              "bucketed ring None": "bucketed ring cuda",
+              "sentinel ring cuda": "bucketed ring cuda",
+              "fused ring ref bf16-wire": "fused ring cuda bf16-wire",
+              "fused ring ref int8-wire": "fused ring cuda int8-wire",
+              "fused doubling None": "fused doubling cuda",
+              "fused hierarchical-2x2 None": "fused hierarchical-2x2 cuda"}
+
+
+def level_b_main_path(stages, device):
+    """Phase 8: returns per-run wall seconds and each stage kernel's
+    launches over the whole main path."""
+    import torch
+    from repro_torch.bench import overlap as ov
+    from repro_torch.core.overlap import tree_flatten
+    grads = ov.make_grads(N_RANKS, seed=0, device=device)
+    meshes = {h: ov.mesh_for(N_RANKS, h, device) for h in (False, True)}
+    n_par = sum(l.numel() for l in tree_flatten(grads[0])[0])
+    if n_par != HUBERT_PARAMS:
+        raise AssertionError(f"hubert-xlarge gradient has {n_par} params")
+    log(f"Level-B main path: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated before the runs (the inputs included)")
+    for k in ov.KERNELS:
+        getattr(stages, k).launches = 0
+    kept, seconds = {}, {}
+    # a run's result is kept until every run that must equal it has run
+    pending = {}
+    for other in SYNC_EQUAL.values():
+        pending[other] = pending.get(other, 0) + 1
+    for label, kw in SYNC_RUNS:
+        kw = dict(kw)
+        mode = kw.pop("mode")
+        mesh = meshes[kw.get("hierarchical", False)]
+        # warm-up of the same configuration on the plain tier (it launches
+        # no kernel): the caching allocator keeps a pool per stream and
+        # each configuration needs blocks of its own sizes, so the timed
+        # run reads the steady state, not cudaMalloc/cudaFree
+        warm = dict(kw, stage_impl="ref" if kw.get("stage_wire") else None)
+        ov.run_sync(mode, grads=grads, mesh=mesh, device=device, **warm)
+        torch.cuda.reset_peak_memory_stats()
+        run = ov.run_sync(mode, grads=grads, mesh=mesh, device=device, **kw)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        seconds[label] = run["seconds"]
+        res = run.pop("results")
+        for r in range(1, N_RANKS):
+            if not _trees_equal(res[r], res[0]):
+                raise AssertionError(f"{label}: rank {r} differs from rank 0")
+        res = res[0]
+        exp = ov.expected_counts(mode, **kw)
+        if mode != "fused" and exp["reductions"] != 7:
+            raise AssertionError(f"{label}: {exp['reductions']} buckets, "
+                                 f"expected 7")
+        if (run["ppermute_calls"] != [exp["ppermute_per_rank"]] * N_RANKS
+                or run["token_waits"] != [exp["token_waits_per_rank"]]
+                * N_RANKS or run["launches"] != exp["launches"]):
+            raise AssertionError(f"{label}: counts {run} differ from the "
+                                 f"derived {exp}")
+        rtol = SYNC_RTOL[kw.get("stage_wire")]
+        errs = _leaf_rel_errors(res, grads)
+        worst = max(e for _, e in errs)
+        for dt, e in errs:
+            if not e <= rtol[dt]:
+                raise AssertionError(f"{label}: a {dt} leaf is {e} from the "
+                                     f"float64 mean (rtol {rtol[dt]})")
+        if label in SYNC_EQUAL:
+            other = SYNC_EQUAL[label]
+            if not _trees_equal(res, kept[other]):
+                raise AssertionError(f"{label}: not bitwise equal to {other}")
+            pending[other] -= 1
+            if not pending[other]:
+                del kept[other]
+            log(f"{label}: bitwise equal to {other}")
+        if label in pending:
+            kept[label] = res
+        del res
+        log(f"sync_grads {label}: {seconds[label]:.6f} s, peak device "
+            f"memory {peak:.2f} GiB, ranks bitwise "
+            f"equal, worst leaf {worst:.3g} of the float64 mean, ppermute "
+            f"{run['ppermute_calls'][0]}/rank, sentinel waits "
+            f"{run['token_waits'][0]}/rank, launches {run['launches']}")
+    if kept:
+        raise AssertionError(f"runs left uncompared: {sorted(kept)}")
+    launches = {k: getattr(stages, k).launches for k in ov.KERNELS}
+    log(f"Level-B main path: launches {launches}")
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f"{k} was not launched on the main path")
+    return seconds, launches
+
+
+def time_stage_kernels(stages, ref, device):
+    """Phase 9: per-kernel times at the main path's chunk shapes (the
+    fused-mode ring chunk: every call's operands are far larger than the
+    50 MB L2, so each launch reads cold data), as in phase 5, plus one
+    PyTorch call computing the same function where there is one."""
+    import torch
+    from repro_torch.kernels import ops
+    out = {}
+    for m in (FUSED_CHUNK,) + BUCKET_CHUNKS:
+        sets = [_stage_inputs(m, device, seed=1 + i) for i in range(2)]
+        acc = [s[0]["fp32"] for s in sets]
+        got = [s[1]["fp32"][0] for s in sets]
+        t = {"ms": graph_ms(lambda i: stages.fused_combine(
+                 acc[i % 2], got[i % 2]), 4),
+             "plain_ms": graph_ms(lambda i: ref.combine_stage(
+                 acc[i % 2], got[i % 2]), 4),
+             "library_ms": graph_ms(lambda i: torch.add(
+                 acc[i % 2], got[i % 2]), 4),
+             "wrapper_ms": time_ms(lambda i: stages.fused_combine(
+                 acc[i % 2], got[i % 2]), 20),
+             "bound_ms": 12 * m / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes"}
+        q = [s[1]["int8"][0] for s in sets]
+        sc = [s[1]["int8"][1] for s in sets]
+        alpha = [float(v) for v in sc]      # read before any capture
+        t8 = {"ms": graph_ms(lambda i: stages.fused_combine(
+                  acc[i % 2], q[i % 2], sc[i % 2]), 4),
+              "plain_ms": graph_ms(lambda i: ref.combine_stage(
+                  acc[i % 2], q[i % 2], sc[i % 2]), 4),
+              "library_ms": graph_ms(lambda i: torch.add(
+                  acc[i % 2], q[i % 2], alpha=alpha[i % 2]), 4),
+              "bound_ms": 9 * m / HBM_BYTES_PER_S * 1e3}
+        # |library - plain| in ulps of the larger addend
+        lib8 = torch.add(acc[0], q[0], alpha=alpha[0])
+        big = torch.maximum(acc[0].abs(), (q[0].float() * sc[0]).abs())
+        ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+        ulp8 = float(((lib8 - ref.combine_stage(acc[0], q[0], sc[0])).abs()
+                      / ulp).max())
+        del lib8, big, ulp
+        log(f"fused_combine m={m} fp32+fp32: device {t['ms']:.6f} ms (plain "
+            f"{t['plain_ms']:.6f}, torch.add {t['library_ms']:.6f}), eager "
+            f"wrapper {t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms")
+        log(f"fused_combine m={m} fp32+int8*scale: device {t8['ms']:.6f} ms "
+            f"(plain {t8['plain_ms']:.6f}, torch.add(alpha=scale) "
+            f"{t8['library_ms']:.6f}, at most {ulp8:.3g} ulp of the larger "
+            f"addend from the kernel's result), bound "
+            f"{t8['bound_ms']:.6f} ms")
+        if m != FUSED_CHUNK:
+            del sets, acc, got, q, sc
+            continue
+        out["fused_combine"] = t
+        x = got
+        scales = [ops.wire_scale(v) for v in x]
+        fscales = [float(v) for v in scales]
+        # torch.quantize_per_tensor(x, scale, 0, qint8) is the same
+        # function up to where x / scale rounds; how many q values differ
+        # from the kernel's is printed beside its time
+        lib_q = torch.quantize_per_tensor(x[0], fscales[0], 0,
+                                          torch.qint8).int_repr()
+        q_diff = int((lib_q != stages.quantize_wire(x[0], scales[0])).sum())
+        del lib_q
+        out["quantize_wire"] = {
+            "ms": graph_ms(lambda i: stages.quantize_wire(
+                x[i % 2], scales[i % 2]), 4),
+            "plain_ms": graph_ms(lambda i: ref.quantize_stage(
+                x[i % 2], scales[i % 2]), 4),
+            # eager, timed by CUDA events: quantized tensors are not
+            # captured in a graph here
+            "library_ms": time_ms(lambda i: torch.quantize_per_tensor(
+                x[i % 2], fscales[i % 2], 0, torch.qint8), 20),
+            "wrapper_ms": time_ms(lambda i: stages.quantize_wire(
+                x[i % 2], scales[i % 2]), 20),
+            "bound_ms": (5 * m + 4) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+        out["dequantize_wire"] = {
+            "ms": graph_ms(lambda i: stages.dequantize_wire(
+                q[i % 2], sc[i % 2]), 4),
+            "plain_ms": graph_ms(lambda i: ref.dequantize_stage(
+                q[i % 2], sc[i % 2]), 4),
+            "library_ms": graph_ms(lambda i: torch.mul(q[i % 2], sc[i % 2]),
+                                   4),
+            "wrapper_ms": time_ms(lambda i: stages.dequantize_wire(
+                q[i % 2], sc[i % 2]), 20),
+            "bound_ms": (5 * m + 4) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+        for k in ("quantize_wire", "dequantize_wire"):
+            v = out[k]
+            log(f"{k} m={m}: device {v['ms']:.6f} ms (plain "
+                f"{v['plain_ms']:.6f}, library {v['library_ms']}), eager "
+                f"wrapper {v['wrapper_ms']:.6f}, bound {v['bound_ms']:.6f} ms")
+        log(f"torch.quantize_per_tensor m={m}: {q_diff} of {m} q values "
+            f"differ from quantize_wire's")
+        del sets, acc, got, q, sc, x
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -287,6 +695,14 @@ def main() -> int:
         f"({t['bound_by']})")
     for version, s in per_it.items():
         log(f"wall {version}: {s:.6f} s/iteration")
+    torch.cuda.empty_cache()
+
+    level_a_tensors(device)
+    stage_err = check_stage_kernels(stages, ref, device)
+    sync_s, stage_launches = level_b_main_path(stages, device)
+    stage_t = time_stage_kernels(stages, ref, device)
+    for label, s in sync_s.items():
+        log(f"wall sync_grads {label}: {s:.6f} s")
 
     kernels = [{
         "name": "gs_stencil", "route": "cuda",
@@ -295,6 +711,15 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err, **t,
         "library_ms": None,
     }]
+    for name, line in (("fused_combine", 82), ("quantize_wire", 135),
+                       ("dequantize_wire", 162)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/collective_stages.cu",
+            "replaces": f"src/repro/kernels/collective_stages.py:{line}",
+            "launches": stage_launches[name],
+            "max_abs_err": stage_err[name],
+            **stage_t[name]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

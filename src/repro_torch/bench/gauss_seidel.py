@@ -35,21 +35,11 @@ import numpy as np
 import torch
 
 from ..core import HaloExchange, HierarchicalCollectives, TaskRuntime, tac
+from ..core.mesh import resolve_device
 from ..kernels import ops as kernel_ops
 
 VERSIONS = ("pure", "forkjoin", "sentinel", "interop-blk", "interop-nonblk")
 BLOCK_IMPLS = (None, "ref", "cuda")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device``, or the CUDA device when none is named; without CUDA a
-    call that names no device raises instead of running on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run "
-                               "on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 def grid_dims(n_ranks: int) -> Tuple[int, int]:

@@ -3,10 +3,10 @@
 The port's counterpart of ``repro.core``: the two generic runtime APIs
 proposed by the paper (§4) with their original names, the task runtime
 that implements them, the TAC library (the TAMPI analogue, with CUDA events
-as the device completion test) and the schedule IR with its host executor
-(Level A).  Only what is ported is exported: the XLA lowering (Level B),
-overlap, pipeline, simulator and resilience modules of ``repro.core`` are
-still to come.
+as the device completion test), the schedule IR with its host executor
+(Level A), and its Level-B executor on logical ranks (``mesh``,
+``lowering``, ``overlap``, ``pipeline``).  The simulator and resilience
+modules of ``repro.core`` are still to come.
 """
 
 from .events import (BlockingContext, EventCounter,
@@ -23,6 +23,7 @@ from . import tac
 from . import schedule
 from . import collectives
 from . import options
+from . import mesh, lowering, overlap, pipeline
 from .schedule import Schedule, build_neighbor, best_schedule
 from .collectives import (Collectives, CollectiveHandle, HaloExchange,
                           HierarchicalCollectives, PersistentCollective)
@@ -58,4 +59,6 @@ __all__ = [
     "PersistentCollective",
     # ULFM failure model (revoke/shrink live on CommWorld)
     "RankFailedError", "CommRevokedError",
+    # Level-B executor on logical ranks
+    "mesh", "lowering", "overlap", "pipeline",
 ]

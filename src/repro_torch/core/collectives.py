@@ -79,12 +79,14 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..obs import trace as _trc
 from . import tac
 from . import program as program_ir
 from . import schedule as schedule_ir
 from .options import CollectiveOptions, renamed_kwarg
+from .program import NamedOp, as_payload, concat_flat, shape_of, split_flat
 from .program import bind_inputs as _bind_inputs
 from .schedule import (Combine, Concat, Const, Copy, Pack, Recv, Schedule,
                        Send, Slice, Unpack)
@@ -112,8 +114,13 @@ def _norm_executor(executor: str) -> str:
                          f"one of {EXECUTORS}")
     return executor
 
-_OPS: Dict[str, Callable] = {"sum": np.add, "prod": np.multiply,
-                             "max": np.maximum, "min": np.minimum}
+# Named reductions: numpy payloads combine with the ufunc, tensor payloads
+# with the torch op of the same name on their own device.
+_OPS: Dict[str, Callable] = {
+    "sum": NamedOp("sum", np.add, torch.add),
+    "prod": NamedOp("prod", np.multiply, torch.mul),
+    "max": NamedOp("max", np.maximum, torch.maximum),
+    "min": NamedOp("min", np.minimum, torch.minimum)}
 
 _ALG_ALIASES = {"ring": "ring", "chain": "ring", "pairwise": "ring",
                 "doubling": "doubling", "recursive-doubling": "doubling",
@@ -506,13 +513,11 @@ def _interpret(sched: Schedule, comm, rank: int, tag, *, value=None,
             for b, v in zip(o.outs, env[o.src]):
                 env[b] = v
         elif isinstance(o, Slice):
-            flat = np.asarray(env[o.src]).reshape(-1)
-            env[o.out] = np.array_split(flat, o.parts)[o.index]
+            env[o.out] = split_flat(env[o.src], o.parts)[o.index]
         elif isinstance(o, Concat):
-            flat = np.concatenate([np.asarray(env[p]).reshape(-1)
-                                   for p in o.parts])
+            flat = concat_flat([env[p] for p in o.parts])
             env[o.out] = flat if o.like is None else flat.reshape(
-                np.asarray(env[o.like]).shape)
+                shape_of(env[o.like]))
         elif isinstance(o, Const):
             env[o.out] = o.value
         else:                       # pragma: no cover - new op kinds
@@ -535,8 +540,7 @@ def _interpret(sched: Schedule, comm, rank: int, tag, *, value=None,
         out = sched.out_bufs[rank]
         return None if out is None else env[out]
     if kind == "concat":
-        flat = np.concatenate([env[c] for c in sched.chunk_bufs])
-        return flat.reshape(shape)
+        return concat_flat([env[c] for c in sched.chunk_bufs]).reshape(shape)
     if kind == "list":
         return [env[("g", i)] for i in range(sched.n)]
     if kind == "dirs":
@@ -549,6 +553,8 @@ def _payload_nbytes(value) -> int:
     """Per-rank payload size for ``algorithm="auto"`` (reductions only —
     their element-wise semantics make the size identical on all ranks,
     so every rank resolves the same schedule)."""
+    if isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
     try:
         return 0 if value is None else np.asarray(value).nbytes
     except Exception:               # noqa: BLE001 - opaque payloads
@@ -779,7 +785,7 @@ class Collectives:
                options: Optional[CollectiveOptions] = None):
         [algorithm] = CollectiveOptions.merge(options, algorithm=algorithm)
         return self._run("reduce", algorithm, rank, key, mode,
-                         value=np.asarray(value), op=_op_fn(op), root=root)
+                         value=as_payload(value), op=_op_fn(op), root=root)
 
     def allreduce(self, value: Any, *, rank: int, op="sum",
                   algorithm: Optional[str] = None, mode: str = "blocking",
@@ -802,7 +808,7 @@ class Collectives:
                 raise ValueError("segmented allreduce requires the ring "
                                  "algorithm")
         return self._run("allreduce", algorithm, rank, key, mode,
-                         value=np.asarray(value), op=_op_fn(op),
+                         value=as_payload(value), op=_op_fn(op),
                          segments=segments, hierarchical=hierarchical)
 
     def allgather(self, value: Any, *, rank: int,
@@ -822,7 +828,7 @@ class Collectives:
             if _norm_alg(algorithm) != "ring":
                 raise ValueError("segmented allgather requires the ring "
                                  "algorithm")
-            value = np.asarray(value)
+            value = as_payload(value)
         return self._run("allgather", algorithm, rank, key, mode,
                          value=value, segments=segments)
 
@@ -843,7 +849,7 @@ class Collectives:
                 raise ValueError("segmented reduce_scatter requires the "
                                  "ring algorithm")
         return self._run("reduce_scatter", algorithm, rank, key, mode,
-                         value=np.asarray(value), op=_op_fn(op),
+                         value=as_payload(value), op=_op_fn(op),
                          segments=segments)
 
     def alltoall(self, blocks: Sequence[Any], *, rank: int,
@@ -959,12 +965,12 @@ class Collectives:
                                   root=kw.get("root", 0))
         if name == "reduce":
             return self._schedule(name, algorithm, rank, key,
-                                  value=np.asarray(kw["value"]),
+                                  value=as_payload(kw["value"]),
                                   op=_op_fn(kw.get("op", "sum")),
                                   root=kw.get("root", 0))
         if name in ("allreduce", "reduce_scatter"):
             return self._schedule(name, algorithm, rank, key,
-                                  value=np.asarray(kw["value"]),
+                                  value=as_payload(kw["value"]),
                                   op=_op_fn(kw.get("op", "sum")),
                                   segments=kw.get("segments", 1),
                                   hierarchical=kw.get("hierarchical"))
@@ -972,7 +978,7 @@ class Collectives:
             value = kw["value"]
             segments = kw.get("segments", 1)
             if segments > 1:
-                value = np.asarray(value)
+                value = as_payload(value)
             return self._schedule(name, algorithm, rank, key,
                                   value=value, segments=segments)
         blocks = list(kw["blocks"])
@@ -1326,7 +1332,7 @@ class HierarchicalCollectives:
 
             def gen():
                 acc = yield from stage[0].gen(lr, key,
-                                              value=np.asarray(value))
+                                              value=as_payload(value))
                 if lr == 0:
                     li = intra.translate(0, self.leaders)
                     acc = yield from stage[1].gen(li, key, value=acc)
@@ -1340,7 +1346,7 @@ class HierarchicalCollectives:
         def gen():
             acc = yield from _interpret(reduce_s, intra, lr,
                                         tag("reduce"),
-                                        value=np.asarray(value), op=op)
+                                        value=as_payload(value), op=op)
             if lr == 0:
                 # rank translation across the nested groups: this rank is
                 # intra-local 0; its leaders-local number comes from
@@ -1366,12 +1372,12 @@ class HierarchicalCollectives:
             prog = program_ir.compile_schedule(self.sched, self.world,
                                                op=op,
                                                head=("hier-composed",))
-            return prog.gen(rank, key, value=np.asarray(value))
+            return prog.gen(rank, key, value=as_payload(value))
 
         def tag(sub):
             return ("hier-composed", key, sub)
         return _interpret(self.sched, self.world, rank, tag,
-                          value=np.asarray(value), op=op)
+                          value=as_payload(value), op=op)
 
     def allreduce(self, value, *, rank: int, op="sum",
                   mode: str = "blocking", key: Any = None,

@@ -1,17 +1,14 @@
 """CollectiveOptions — one coherent keyword spec for collective tuning.
 
-The tuning knobs of the collective stack accreted spellings as the tiers
-landed: the host Collectives grew ``hierarchical=`` (per call) next to
-``hierarchy=`` (constructor), the Level-B lowering spelled the ring
-transport dtype ``wire=`` while the grad-sync wrapper used ``wire=`` for
-the *presentation* dtype policy and ``stage_wire=`` for the transport.
-This module is the consolidation: one frozen dataclass naming every
-knob once, accepted as ``options=`` by every entry point of the stack —
+One frozen dataclass names every tuning knob of the collective stack
+once; it is accepted as ``options=`` by every entry point of the stack —
 :class:`repro_torch.core.collectives.Collectives` (constructor and the seven
-collectives), :func:`repro.core.lowering.allreduce` /
-:func:`~repro.core.lowering.lower_allreduce`, and
-:func:`repro.core.overlap.sync_grads` — with the superseded spellings
-kept as back-compat shims that raise :class:`DeprecationWarning`.
+collectives), :func:`repro_torch.core.lowering.allreduce` /
+:func:`~repro_torch.core.lowering.lower_allreduce`, and
+:func:`repro_torch.core.overlap.sync_grads`.  The host Collectives'
+``hierarchy=`` (constructor) stays as a shim for ``hierarchical=`` that
+raises :class:`DeprecationWarning`; the Level-B entry points take only the
+canonical names.
 
 Canonical spellings (each knob means the same thing at every layer):
 
@@ -24,15 +21,14 @@ Canonical spellings (each knob means the same thing at every layer):
                           (host tiers: consecutive-rank pod size; Level-B
                           grad sync: truthy selects the two-axis schedule,
                           the axes carry the sizes)
-``stage_impl``            fused between-round stage tier (``"pallas"``/
-                          ``"pallas_interpret"``/``"ref"``; ``None`` = plain
-                          XLA elementwise)
+``stage_impl``            fused between-round stage tier (``"cuda"`` = the
+                          hand-written kernels, ``"ref"`` = their plain
+                          PyTorch versions; ``None`` = the plain add)
 ``stage_wire``            ring *transport* dtype per round (``"bf16"``/
-                          ``"int8"``; needs ``stage_impl``) — was ``wire=``
-                          in :mod:`repro.core.lowering`
+                          ``"int8"``; needs ``stage_impl``)
 ``reduce_dtype``          dtype policy a gradient leaf is *presented* to the
                           collective in (``"fp32"``/``"leaf"``; grad sync
-                          only) — was ``wire=`` in :mod:`repro.core.overlap`
+                          only)
 ========================  ====================================================
 """
 

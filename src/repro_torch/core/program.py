@@ -57,6 +57,7 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..obs import trace as _trc
 from . import tac
@@ -64,11 +65,71 @@ from .schedule import (Combine, Concat, Const, Copy, Pack, Recv, Schedule,
                        Send, Slice, Unpack)
 
 __all__ = ["CompiledProgram", "compile_schedule", "cache_stats",
-           "clear_cache", "CACHE_MAX", "bind_inputs"]
+           "clear_cache", "CACHE_MAX", "bind_inputs", "NamedOp",
+           "as_payload"]
+
+# ---------------------------------------------------------------------------
+# Payloads.  A ``torch.Tensor`` payload stays a tensor on its own device
+# through every op of a schedule (split, concatenate, combine); anything
+# else is a numpy array and takes the numpy path unchanged.
+# ---------------------------------------------------------------------------
+class NamedOp:
+    """A named reduction: the numpy ufunc on arrays, the torch op of the
+    same name on tensors (computed on the tensor's device).  Both accept
+    ``out=``, which is what the arena combine writes through."""
+
+    __slots__ = ("name", "ufunc", "torch_fn")
+
+    def __init__(self, name: str, ufunc: np.ufunc, torch_fn) -> None:
+        self.name = name
+        self.ufunc = ufunc
+        self.torch_fn = torch_fn
+
+    def __call__(self, a, b, out=None):
+        if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+            if not isinstance(a, torch.Tensor):
+                a = torch.as_tensor(a, device=b.device)
+            elif not isinstance(b, torch.Tensor):
+                b = torch.as_tensor(b, device=a.device)
+            if out is None:
+                return self.torch_fn(a, b)
+            return self.torch_fn(a, b, out=out)
+        if out is None:
+            return self.ufunc(a, b)
+        return self.ufunc(a, b, out=out)
+
+    def __repr__(self) -> str:
+        return f"NamedOp({self.name!r})"
+
+
+def as_payload(value):
+    """A tensor as it is (never through numpy); anything else as an array."""
+    return value if isinstance(value, torch.Tensor) else np.asarray(value)
+
+
+def split_flat(value, parts: int):
+    """``np.array_split`` of the flattened payload (``tensor_split`` for a
+    tensor: the same chunk sizes, views on the same device)."""
+    if isinstance(value, torch.Tensor):
+        return list(torch.tensor_split(value.reshape(-1), parts))
+    return np.array_split(np.asarray(value).reshape(-1), parts)
+
+
+def concat_flat(values):
+    """The flattened payloads end to end (``torch.cat`` for tensors)."""
+    if any(isinstance(v, torch.Tensor) for v in values):
+        return torch.cat([v.reshape(-1) for v in values])
+    return np.concatenate([np.asarray(v).reshape(-1) for v in values])
+
+
+def shape_of(value):
+    return (tuple(value.shape) if isinstance(value, torch.Tensor)
+            else np.asarray(value).shape)
+
 
 # Reserved env key under which a caller-owned buffer arena rides along a
 # run.  An arena maps combine-output buffer names to pre-allocated numpy
-# arrays that ufunc combines write into with ``out=`` instead of
+# arrays (or tensors) that named-op combines write into with ``out=`` instead of
 # allocating a fresh result per round — the zero-copy half of a
 # persistent plan (MPI_Allreduce_init's pre-registered buffers).  The
 # arena is only sound when the holder serialises iterations: a run must
@@ -93,17 +154,17 @@ def bind_inputs(sched: Schedule, value, blocks, sends):
     if kind == "value":
         env["in"] = value
     elif kind == "array":
-        env["in"] = np.asarray(value)
+        env["in"] = as_payload(value)
     elif kind == "chunks":
-        arr = np.asarray(value)
-        shape = arr.shape
-        outer = np.array_split(arr.reshape(-1), sched.n_chunks or sched.n)
+        arr = as_payload(value)
+        shape = shape_of(arr)
+        outer = split_flat(arr, sched.n_chunks or sched.n)
         if sched.segments == 1:
             for i, c in enumerate(outer):
                 env[("c", i)] = c
         else:
             for i, c in enumerate(outer):
-                segs = np.array_split(c, sched.segments)
+                segs = split_flat(c, sched.segments)
                 for s, seg in enumerate(segs):
                     env[("c", i, s)] = seg
     elif kind == "blocks":
@@ -141,24 +202,40 @@ def _compile_op(o, rank: int, isend, irecv, wranks, mktag, op):
             raise ValueError(
                 f"schedule combines ({o!r}) but no op was compiled in")
         out, a, b = o.out, o.a, o.b
-        if isinstance(op, np.ufunc):
-            # Named reductions resolve to raw ufuncs, which accept
-            # ``out=`` — under an arena the combine writes into a
-            # persistent per-output buffer instead of allocating.
+        if isinstance(op, NamedOp):
+            # Named reductions accept ``out=`` — under an arena the
+            # combine writes into a persistent per-output buffer instead
+            # of allocating: a numpy array for arrays, a tensor on the
+            # operands' device for tensors.
             def action(env, pending, key):
                 va, vb = env[a], env[b]
                 arena = env.get(_ARENA)
-                if (arena is None or not isinstance(va, np.ndarray)
-                        or not isinstance(vb, np.ndarray)
-                        or va.shape != vb.shape):
+                if arena is None:
                     env[out] = op(va, vb)
-                    return
-                buf = arena.get(out)
-                rt = np.result_type(va, vb)
-                if buf is None or buf.shape != va.shape or buf.dtype != rt:
-                    buf = np.empty(va.shape, rt)
-                    arena[out] = buf
-                env[out] = op(va, vb, out=buf)
+                elif (isinstance(va, np.ndarray)
+                        and isinstance(vb, np.ndarray)
+                        and va.shape == vb.shape):
+                    buf = arena.get(out)
+                    rt = np.result_type(va, vb)
+                    if (not isinstance(buf, np.ndarray)
+                            or buf.shape != va.shape or buf.dtype != rt):
+                        buf = np.empty(va.shape, rt)
+                        arena[out] = buf
+                    env[out] = op(va, vb, out=buf)
+                elif (isinstance(va, torch.Tensor)
+                        and isinstance(vb, torch.Tensor)
+                        and va.shape == vb.shape
+                        and va.device == vb.device):
+                    buf = arena.get(out)
+                    rt = torch.result_type(va, vb)
+                    if (not isinstance(buf, torch.Tensor)
+                            or buf.shape != va.shape or buf.dtype != rt
+                            or buf.device != va.device):
+                        buf = torch.empty_like(va, dtype=rt)
+                        arena[out] = buf
+                    env[out] = op(va, vb, out=buf)
+                else:
+                    env[out] = op(va, vb)
         else:
             def action(env, pending, key):
                 env[out] = op(env[a], env[b])
@@ -182,16 +259,14 @@ def _compile_op(o, rank: int, isend, irecv, wranks, mktag, op):
         out, src_buf, parts, index = o.out, o.src, o.parts, o.index
 
         def action(env, pending, key):
-            env[out] = np.array_split(
-                np.asarray(env[src_buf]).reshape(-1), parts)[index]
+            env[out] = split_flat(env[src_buf], parts)[index]
     elif isinstance(o, Concat):
         out, parts, like = o.out, o.parts, o.like
 
         def action(env, pending, key):
-            flat = np.concatenate([np.asarray(env[p]).reshape(-1)
-                                   for p in parts])
+            flat = concat_flat([env[p] for p in parts])
             env[out] = flat if like is None else flat.reshape(
-                np.asarray(env[like]).shape)
+                shape_of(env[like]))
     elif isinstance(o, Const):
         out, value = o.out, o.value
 
@@ -211,8 +286,7 @@ def _compile_finish(sched: Schedule) -> Optional[Callable]:
         chunk_bufs = sched.chunk_bufs
 
         def finish(env, shape, rank):
-            flat = np.concatenate([env[c] for c in chunk_bufs])
-            return flat.reshape(shape)
+            return concat_flat([env[c] for c in chunk_bufs]).reshape(shape)
     elif kind == "buf":
         out_bufs = sched.out_bufs
 
@@ -224,8 +298,11 @@ def _compile_finish(sched: Schedule) -> Optional[Callable]:
             # Under an arena the final combine result lives in a reused
             # buffer; hand the caller a copy so the next iteration's
             # in-place writes cannot reach a result already returned.
-            if _ARENA in env and isinstance(v, np.ndarray):
-                return v.copy()
+            if _ARENA in env:
+                if isinstance(v, np.ndarray):
+                    return v.copy()
+                if isinstance(v, torch.Tensor):
+                    return v.clone()
             return v
     elif kind == "list":
         names = tuple(("g", i) for i in range(sched.n))

@@ -27,13 +27,23 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 # One entry per kernel library: name -> C functions and their signatures
-# (argtypes, restype).  Pointers and the stream are c_void_p, sizes c_int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# (argtypes, restype).  Pointers and the stream are c_void_p, sizes c_int,
+# element counts c_longlong.
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "gs_stencil": {
         "gs_stencil_num_partials": ((_I, _I), _I),
         "gs_stencil_f32": ((_P,) * 12 + (_I, _I, _P), _I),
         "gs_stencil_bf16": ((_P,) * 12 + (_I, _I, _P), _I),
+    },
+    "collective_stages": {
+        # (acc, got, scale or NULL, out, n, acc dtype, got dtype,
+        #  accumulate, stream)
+        "fused_combine": ((_P, _P, _P, _P, _L, _I, _I, _I, _P), _I),
+        # (x, scale, q, n, x dtype, stream)
+        "quantize_wire": ((_P, _P, _P, _L, _I, _P), _I),
+        # (q, scale, out, n, out dtype, stream)
+        "dequantize_wire": ((_P, _P, _P, _L, _I, _P), _I),
     },
 }
 

@@ -9,7 +9,9 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
+
+import torch
 
 from . import collective_stages as _stages
 from . import ref
@@ -17,14 +19,72 @@ from . import ref
 IMPLS = (None, "cuda", "ref")
 
 
+def _check_impl(name: str, impl: Optional[str]) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"{name}: impl must be one of {IMPLS}, "
+                         f"got {impl!r}")
+
+
+# ---------------------------------------------------------------------------
+# Fused collective stages (the Level-B executor tier; see
+# repro_torch.kernels.collective_stages and repro_torch.core.lowering
+# stage_impl=)
+# ---------------------------------------------------------------------------
+def combine_stage(acc, got, scale=None, *, accumulate: bool = True,
+                  impl: Optional[str] = None, out=None) -> torch.Tensor:
+    """Fused reduce-scatter combine: ``acc + dequant(got)`` in one pass.
+
+    ``got`` may be in a narrower wire dtype (bf16, or int8 with
+    ``scale``); ``accumulate=False`` is the allgather-leg chunk install.
+    ``out`` (may be ``acc``) receives the result in place.
+    """
+    _check_impl("combine_stage", impl)
+    if impl == "ref":
+        return ref.combine_stage(acc, got, scale, accumulate=accumulate,
+                                 out=out)
+    return _stages.fused_combine(acc, got, scale, accumulate=accumulate,
+                                 out=out)
+
+
+def wire_scale(x: torch.Tensor) -> torch.Tensor:
+    """``max(max|x|, 1e-20) / 127`` as a 0-d fp32 tensor on ``x``'s
+    device (plain torch, outside the kernel, as the JAX package leaves it
+    to XLA; no temporary of ``|x|`` is written)."""
+    lo, hi = torch.aminmax(x)
+    amax = torch.maximum(hi.abs(), lo.abs()).float()
+    return torch.clamp_min(amax, 1e-20) / 127.0
+
+
+def quantize_stage(x, *, impl: Optional[str] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 wire quantisation; returns ``(q, scale)``.
+
+    The scale stays a 0-d fp32 tensor on the device: reading it on the
+    host would synchronise every rank's stream once per round.
+    """
+    _check_impl("quantize_stage", impl)
+    scale = wire_scale(x)
+    if impl == "ref":
+        return ref.quantize_stage(x, scale), scale
+    return _stages.quantize_wire(x, scale), scale
+
+
+def dequantize_stage(q, scale, dtype=torch.float32, *,
+                     impl: Optional[str] = None, out=None) -> torch.Tensor:
+    """``q × scale`` cast to ``dtype``: the decode of int8 wire chunks
+    (into ``out`` when given)."""
+    _check_impl("dequantize_stage", impl)
+    if impl == "ref":
+        return ref.dequantize_stage(q, scale, dtype, out=out)
+    return _stages.dequantize_wire(q, scale, dtype, out=out)
+
+
 def gs_stencil(block, top, left, bottom, right, *,
                impl: Optional[str] = None):
     """Fused Gauss–Seidel block stage: 4-point update, L1 residual and
     the four outgoing boundary edges in one pass over the block.
     Returns ``(new_block, residual, (top, bottom, left, right))``."""
-    if impl not in IMPLS:
-        raise ValueError(f"gs_stencil: impl must be one of {IMPLS}, "
-                         f"got {impl!r}")
+    _check_impl("gs_stencil", impl)
     if impl == "ref":
         return ref.gs_stencil(block, top, left, bottom, right)
     return _stages.gs_stencil(block, top, left, bottom, right)

@@ -40,8 +40,15 @@ try:
     no_device = "ran"
 except RuntimeError as e:
     no_device = "raised: " + str(e)
+from repro_torch.bench import overlap
+try:
+    overlap.run_sync("fused", shapes=[("w", (8,), torch.float32)])
+    no_device_sync = "ran"
+except RuntimeError as e:
+    no_device_sync = "raised: " + str(e)
 print(json.dumps({"modules": mods, "bad": bad, "cuda": torch.cuda
-                  .is_available(), "no_device": no_device}))
+                  .is_available(), "no_device": no_device,
+                  "no_device_sync": no_device_sync}))
 """
 
 
@@ -64,11 +71,15 @@ def test_port_imports_no_jax_and_no_reference_package(isolated):
     for mod in ("repro_torch.core.tac", "repro_torch.core.collectives",
                 "repro_torch.kernels.collective_stages",
                 "repro_torch.kernels.build",
-                "repro_torch.bench.gauss_seidel", "repro_torch.obs.trace"):
+                "repro_torch.bench.gauss_seidel", "repro_torch.obs.trace",
+                "repro_torch.core.mesh", "repro_torch.core.lowering",
+                "repro_torch.core.overlap", "repro_torch.core.pipeline",
+                "repro_torch.bench.overlap"):
         assert mod in out["modules"]
 
 
 def test_entry_point_without_device_raises_on_cuda_less_host(isolated):
     assert isolated["cuda"] is False
-    assert isolated["no_device"].startswith("raised:")
-    assert "device='cpu'" in isolated["no_device"]
+    for key in ("no_device", "no_device_sync"):
+        assert isolated[key].startswith("raised:")
+        assert "device='cpu'" in isolated[key]
