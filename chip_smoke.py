@@ -51,10 +51,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    in phase 5, beside one PyTorch call computing the same function
    (``library_ms``): ``torch.add``, ``torch.add(alpha=scale)``,
    ``torch.quantize_per_tensor`` (eager) and ``torch.mul``.
+10. ``flash_attention`` against its plain version on the card: the five
+    shapes of the JAX package's kernel test, S = T = 1000 and S = 1 with
+    T = 2080, and the prefill shape of the smoke-scale granite-3-2b that
+    the serving CLI runs by default (1, 32, 4/2, 16), in fp32 and bf16,
+    then granite-3-2b's prefill shape (1, 2048, 32/8, 64) in bf16 (the
+    main path's) and in fp32 (the same tiling held to fp32's tolerance) —
+    within 2e-5 (fp32) and 2e-2 (bf16), and two calls bitwise equal.
+11. The serving main path: granite-3-2b at full width and depth
+    (2,533,531,648 parameters, bf16, random weights from seed 0) served
+    by ``ServingEngine`` + ``LMAdapter`` — 4 requests of 2048 prompt
+    tokens and 32 generated tokens, 4 slots, 4 workers — on the ``event``
+    and the ``blocking`` leg, each after an untimed warm-up request.  Both
+    legs emit identical streams of 32 tokens per request; the kernel is
+    launched exactly 40 x 4 times per leg (prefill only); one request with
+    ``attn_impl="ref"`` agrees in its prefill logits within
+    ``SERVE_LOGIT_RTOL`` and in its first token where the plain path's
+    top-1/top-2 margin exceeds that tolerance.  One request alone gives
+    prefill ms and decode ms per token.
+12. Timing of ``flash_attention`` at granite's prefill shape, as in phase
+    5, beside ``scaled_dot_product_attention`` (``library_ms``).
 
 Prints the per-version wall time, the wall time of each ``sync_grads``
-run, the ``kernels`` JSON line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  It imports nothing of the JAX package.
+run, tokens/s and p50/p99 token latency per serving leg, the ``kernels``
+JSON line, the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.  It imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -670,6 +691,236 @@ def time_stage_kernels(stages, ref, device):
     return out
 
 
+# Phase 10 shapes: (B, S, T, H, Hkv, D, causal, window) -- the sweep of the
+# JAX package's kernel test, a ragged pair, the smoke-scale granite-3-2b
+# prefill of the serving CLI's defaults, and granite-3-2b's prefill.
+FLASH_CASES = (
+    (1, 256, 256, 4, 2, 64, True, None),
+    (2, 128, 128, 8, 8, 128, False, None),
+    (1, 256, 256, 4, 1, 64, True, 64),
+    (2, 512, 512, 2, 2, 32, True, None),
+    (1, 128, 128, 6, 2, 80, True, None),
+    (1, 1000, 1000, 4, 2, 64, True, None),
+    (1, 1, 2080, 4, 2, 64, False, None),
+    (1, 32, 32, 4, 2, 16, True, None),
+)
+GRANITE_PREFILL = (1, 2048, 2048, 32, 8, 64, True, None)
+# tests/test_kernels.py's tolerances (atol = rtol), compared in fp32
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Phase 11: granite-3-2b at full width and depth, served on one card.
+GRANITE_PARAMS = 2_533_531_648
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS = 4, 2048, 32, 4
+# The kernel path's prefill logits against the plain attention's, as
+# max|diff| / max|plain logits|.  Both attentions read the same bf16 q, k,
+# v and accumulate in fp32, in different orders (about 1e-6 relative); the
+# bf16 rounding of their outputs then differs by one ulp (2^-8) on the
+# elements that straddle a rounding boundary, and 40 layers of bf16
+# matmuls and residual adds carry those flips to the logits.  So: the bf16
+# tolerance of the kernel test (2e-2), widened 2.5x for the depth, as the
+# CPU model test widens it for two layers (5e-2).
+SERVE_LOGIT_RTOL = 5e-2
+BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
+
+
+def _qkv(case, dtype, device, seed):
+    import torch
+    B, S, T, H, Hkv, D = case[:6]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((B, S, H, D), (B, T, Hkv, D), (B, T, Hkv, D))]
+
+
+def check_flash_attention(fa, ref, device) -> float:
+    """Phase 10: the kernel against its plain version on the card at every
+    shape, in fp32 and bf16, and bitwise repeatable; returns the largest
+    |kernel - plain| at granite's prefill shape (bf16)."""
+    import torch
+    worst = 0.0
+    cases = [(c, dt) for dt in ("float32", "bfloat16") for c in FLASH_CASES]
+    cases += [(GRANITE_PREFILL, "bfloat16"), (GRANITE_PREFILL, "float32")]
+    for case, dt in cases:
+        causal, window = case[6], case[7]
+        q, k, v = _qkv(case, getattr(torch, dt), device, seed=sum(case[:6]))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        again = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tag = f"flash_attention {dt} {case}"
+        if got.dtype != q.dtype or got.shape != q.shape:
+            raise AssertionError(f"{tag}: result {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{tag}: two calls differ")
+        tol = FLASH_TOL[dt]
+        err = _max_abs_diff(got, want)
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"{tag}: max |kernel - plain| {err} beyond "
+                                 f"atol = rtol = {tol}")
+        if case == GRANITE_PREFILL and dt == "bfloat16":
+            worst = err
+        log(f"{tag}: max |kernel - plain| {err:.3g} (atol = rtol = {tol}), "
+            f"two calls bitwise equal")
+    return worst
+
+
+def serving_main_path(fa, device) -> dict:
+    """Phase 11: granite-3-2b at full width and depth served through the
+    port's engine on both completion legs; returns what the run measured
+    and the kernel's launches over both legs."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as port_model
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.lm import LMAdapter
+    cfg = configs.get("granite-3-2b")
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads) != \
+            (40, 2048, 32, 8):
+        raise AssertionError(f"granite-3-2b config is not full width: {cfg}")
+    t0 = time.perf_counter()
+    model = port_model.init(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_par = port_model.param_count(model)
+    if n_par != GRANITE_PARAMS:
+        raise AssertionError(f"granite-3-2b has {n_par} parameters, "
+                             f"expected {GRANITE_PARAMS}")
+    log(f"granite-3-2b: {n_par} parameters in bf16, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, init "
+        f"{time.perf_counter() - t0:.3f} s")
+    adapter = LMAdapter(cfg, model, prompt_len=SERVE_PROMPT,
+                        gen_len=SERVE_GEN, device=device)
+    out = {"legs": {}}
+
+    # one request alone, step by step: prefill ms and decode ms per token
+    adapter.warmup()
+    req = Request(rid=-2, prompt=12345, gen_len=SERVE_GEN)
+    t0 = time.perf_counter()
+    handle, state = adapter.prefill(req)
+    handle.wait()
+    t1 = time.perf_counter()
+    for step in range(1, SERVE_GEN):
+        handle, state = adapter.decode(req, state, step)
+        handle.wait()
+    t2 = time.perf_counter()
+    del state
+    out["prefill_ms"] = (t1 - t0) * 1e3
+    out["decode_ms_per_token"] = (t2 - t1) * 1e3 / (SERVE_GEN - 1)
+    log(f"one request alone: prefill {out['prefill_ms']:.3f} ms "
+        f"({SERVE_PROMPT} tokens), decode {out['decode_ms_per_token']:.3f} "
+        f"ms/token")
+
+    streams, launches = {}, 0
+    for leg in ("event", "blocking"):
+        adapter.warmup()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = 0
+        reqs = [Request(rid=i, prompt=1000 + i, gen_len=SERVE_GEN)
+                for i in range(SERVE_REQUESTS)]
+        rep = ServingEngine(adapter, slots=SERVE_SLOTS, completion=leg,
+                            num_workers=SERVE_SLOTS).run(reqs)
+        torch.cuda.synchronize()
+        n = fa.flash_attention.launches
+        launches += n
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for r in reqs:
+            r.cache = None
+        if n != cfg.n_layers * SERVE_REQUESTS:
+            raise AssertionError(f"{leg} leg: flash_attention launched {n} "
+                                 f"times, expected {cfg.n_layers} x "
+                                 f"{SERVE_REQUESTS} (prefill only)")
+        for rid, toks in rep.outputs.items():
+            if len(toks) != SERVE_GEN or not all(
+                    0 <= t < cfg.vocab for t in toks):
+                raise AssertionError(f"{leg} leg: request {rid} emitted "
+                                     f"{toks}")
+        streams[leg] = rep.outputs
+        out["legs"][leg] = {"tokens_per_s": rep.tokens_per_s,
+                            "p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms,
+                            "wall_s": rep.wall_s, "peak_gib": peak}
+        log(f"serve {rep.summary()}; flash_attention launches {n}; peak "
+            f"allocated {peak:.2f} GiB")
+    if streams["event"] != streams["blocking"]:
+        raise AssertionError("the event and blocking legs emitted different "
+                             "token streams")
+    log(f"serve: both legs emitted identical streams; request 0: "
+        f"{streams['event'][0]}")
+
+    # the plain attention on the same weights and prompt
+    prompt = adapter.prompt_tokens(Request(rid=0, prompt=1000, gen_len=1))
+    with torch.inference_mode():
+        toks = {"tokens": prompt.to(device)}
+        lk, _ = port_model.apply(model, toks, mode="prefill")
+        lr, _ = port_model.apply(model, toks, mode="prefill",
+                                 attn_impl="ref")
+    lk, lr = lk[0, -1].float(), lr[0, -1].float()
+    scale = float(lr.abs().max())
+    diff = float((lk - lr).abs().max())
+    out["logit_rel_diff"] = diff / scale
+    if not diff <= SERVE_LOGIT_RTOL * scale:
+        raise AssertionError(f"prefill logits: kernel vs plain attention "
+                             f"max |diff| {diff} > {SERVE_LOGIT_RTOL} x "
+                             f"{scale}")
+    top2 = torch.topk(lr, 2).values
+    margin = float(top2[0] - top2[1])
+    plain = LMAdapter(cfg, model, prompt_len=SERVE_PROMPT, gen_len=SERVE_GEN,
+                      device=device, attn_impl="ref")
+    before = fa.flash_attention.launches
+    ref_stream = ServingEngine(plain, slots=1, completion="blocking",
+                               num_workers=1).run(
+        [Request(rid=0, prompt=1000, gen_len=SERVE_GEN)]).outputs[0]
+    if fa.flash_attention.launches != before:
+        raise AssertionError("attn_impl='ref' launched the kernel")
+    if margin > SERVE_LOGIT_RTOL * scale and \
+            ref_stream[0] != streams["event"][0][0]:
+        raise AssertionError(f"first token {streams['event'][0][0]} differs "
+                             f"from the plain path's {ref_stream[0]} with a "
+                             f"top-1/top-2 margin of {margin}")
+    agree = sum(a == b for a, b in zip(ref_stream, streams["event"][0]))
+    out["plain_tokens_agree"] = agree
+    log(f"plain attention (attn_impl='ref'), request 0: prefill logits max "
+        f"|kernel - plain| {diff:.4g} = {diff / scale:.4g} of max |logit| "
+        f"{scale:.4g} (rtol {SERVE_LOGIT_RTOL}); top-1/top-2 margin "
+        f"{margin:.4g}; {agree} of {SERVE_GEN} tokens agree with the "
+        f"kernel path's stream")
+    out["launches"] = launches
+    return out
+
+
+def time_flash_attention(fa, ref, device) -> dict:
+    """Phase 12: times per call at granite's prefill shape, bf16 (a ring of
+    four input sets, 84 MB, larger than the 50 MB L2), as in phase 5, and
+    one PyTorch call computing the same function (``library_ms``:
+    ``scaled_dot_product_attention``, causal, GQA)."""
+    import torch
+    import torch.nn.functional as F
+    B, S, T, H, Hkv, D = GRANITE_PREFILL[:6]
+    ring = [_qkv(GRANITE_PREFILL, torch.bfloat16, device, seed=50 + i)
+            for i in range(4)]
+    sdpa = [[t.transpose(1, 2) for t in qkv] for qkv in ring]
+    t = {"ms": graph_ms(lambda i: fa.flash_attention(*ring[i % 4]), 8),
+         "plain_ms": graph_ms(lambda i: ref.flash_attention(*ring[i % 4]),
+                              4),
+         "library_ms": graph_ms(lambda i: F.scaled_dot_product_attention(
+             *sdpa[i % 4], is_causal=True, enable_gqa=True), 8),
+         "wrapper_ms": time_ms(lambda i: fa.flash_attention(*ring[i % 4]),
+                               40)}
+    lib = F.scaled_dot_product_attention(*sdpa[0], is_causal=True,
+                                         enable_gqa=True).transpose(1, 2)
+    lib_err = _max_abs_diff(lib, fa.flash_attention(*ring[0]))
+    flops = 2 * 2 * S * T * D * H / 2          # QK^T and PV, causal half
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * T * Hkv * D)
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t["bound_ms"] = max(t_ops, t_bytes)
+    t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"flash_attention {GRANITE_PREFILL} bf16: device {t['ms']:.6f} ms "
+        f"(plain {t['plain_ms']:.6f}, SDPA {t['library_ms']:.6f}, max "
+        f"|SDPA - kernel| {lib_err:.3g}), eager wrapper "
+        f"{t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return t
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -677,7 +928,10 @@ def main() -> int:
         return 1
     from repro_torch.bench import gauss_seidel as gs
     from repro_torch.kernels import build, collective_stages as stages, ref
+    from repro_torch.kernels import flash_attention as fa
     device = torch.device("cuda")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
     outputs = build.build()
@@ -703,6 +957,16 @@ def main() -> int:
     stage_t = time_stage_kernels(stages, ref, device)
     for label, s in sync_s.items():
         log(f"wall sync_grads {label}: {s:.6f} s")
+    torch.cuda.empty_cache()
+
+    flash_err = check_flash_attention(fa, ref, device)
+    serve = serving_main_path(fa, device)
+    torch.cuda.empty_cache()
+    flash_t = time_flash_attention(fa, ref, device)
+    for leg, v in serve["legs"].items():
+        log(f"serve {leg}: {v['tokens_per_s']:.3f} tokens/s, p50 "
+            f"{v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms, wall "
+            f"{v['wall_s']:.3f} s, peak allocated {v['peak_gib']:.2f} GiB")
 
     kernels = [{
         "name": "gs_stencil", "route": "cuda",
@@ -720,6 +984,12 @@ def main() -> int:
             "launches": stage_launches[name],
             "max_abs_err": stage_err[name],
             **stage_t[name]})
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:98",
+        "launches": serve["launches"], "max_abs_err": flash_err,
+        **flash_t})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

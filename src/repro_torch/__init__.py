@@ -9,6 +9,10 @@ mirror ``repro``'s so each module's counterpart is easy to find:
   schedule IR and the Level-A collectives;
 * :mod:`repro_torch.kernels` — hand-written Hopper kernels beside their
   plain-PyTorch versions;
+* :mod:`repro_torch.configs`, :mod:`repro_torch.models` — the
+  architecture configs and the dense attention + MLP language model;
+* :mod:`repro_torch.serving`, :mod:`repro_torch.launch` — continuous-
+  batching serving on the task runtime and its CLI;
 * :mod:`repro_torch.bench` — the paper's benchmarks on the port.
 
 Entry points run on the CUDA device unless the caller passes

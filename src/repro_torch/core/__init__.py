@@ -5,8 +5,8 @@ proposed by the paper (§4) with their original names, the task runtime
 that implements them, the TAC library (the TAMPI analogue, with CUDA events
 as the device completion test), the schedule IR with its host executor
 (Level A), and its Level-B executor on logical ranks (``mesh``,
-``lowering``, ``overlap``, ``pipeline``).  The simulator and resilience
-modules of ``repro.core`` are still to come.
+``lowering``, ``overlap``, ``pipeline``), and the ULFM resilience helpers
+(``resilience``).  The simulator of ``repro.core`` is still to come.
 """
 
 from .events import (BlockingContext, EventCounter,
@@ -24,6 +24,8 @@ from . import schedule
 from . import collectives
 from . import options
 from . import mesh, lowering, overlap, pipeline
+from . import resilience
+from .resilience import FaultInjector
 from .schedule import Schedule, build_neighbor, best_schedule
 from .collectives import (Collectives, CollectiveHandle, HaloExchange,
                           HierarchicalCollectives, PersistentCollective)
@@ -57,8 +59,8 @@ __all__ = [
     "HierarchicalCollectives",
     # persistent collectives (MPI_*_init analogue)
     "PersistentCollective",
-    # ULFM failure model (revoke/shrink live on CommWorld)
-    "RankFailedError", "CommRevokedError",
+    # ULFM failure model (revoke/shrink live on CommWorld) + injection
+    "RankFailedError", "CommRevokedError", "resilience", "FaultInjector",
     # Level-B executor on logical ranks
     "mesh", "lowering", "overlap", "pipeline",
 ]

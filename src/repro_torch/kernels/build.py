@@ -45,6 +45,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # (q, scale, out, n, out dtype, stream)
         "dequantize_wire": ((_P, _P, _P, _L, _I, _P), _I),
     },
+    "flash_attention": {
+        # (q, k, v, out, B, S, T, H, Hkv, D, causal, window or -1, dtype,
+        #  stream)
+        "flash_attention_fwd": ((_P,) * 4 + (_I,) * 9 + (_P,), _I),
+    },
 }
 
 _lock = threading.Lock()

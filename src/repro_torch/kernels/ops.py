@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import collective_stages as _stages
+from . import flash_attention as _flash
 from . import ref
 
 IMPLS = (None, "cuda", "ref")
@@ -23,6 +24,25 @@ def _check_impl(name: str, impl: Optional[str]) -> None:
     if impl not in IMPLS:
         raise ValueError(f"{name}: impl must be one of {IMPLS}, "
                          f"got {impl!r}")
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """Prefill attention: q (B, S, H, D), k/v (B, T, Hkv, D).  The Hopper
+    kernel for CUDA tensors (its plain version on the CPU), or with
+    ``impl="ref"`` the plain key-tile loop on any device."""
+    _check_impl("flash_attention", impl)
+    if impl == "ref":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+# Plain torch with no hand kernel, as in the JAX package: the decode path.
+attention_ref = ref.attention
 
 
 # ---------------------------------------------------------------------------

@@ -6,10 +6,14 @@ kernel wrappers, the oracle the CPU tests hold the port against the JAX
 package with, and the version ``chip_smoke.py`` compares each kernel to on
 the card.  Counterpart of the collective-stage oracles in
 ``repro/kernels/ref.py`` (``combine_stage``, ``quantize_stage``,
-``dequantize_stage`` and ``gs_stencil``).
+``dequantize_stage`` and ``gs_stencil``), and of the attention oracles
+(``attention``, the dense oracle and decode path, and ``flash_attention``,
+the plain version of the attention kernel).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -73,3 +77,104 @@ def dequantize_stage(q: torch.Tensor, scale, dtype=torch.float32, *,
     given)."""
     v = (q.float() * scale).to(dtype)
     return v if out is None else out.copy_(v)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, causal / bidirectional, sliding window)
+# ---------------------------------------------------------------------------
+NEG_INF = -1e30
+_PLAIN_BLOCK_K = 128    # key-tile width of the plain flash_attention loop
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              kv_valid_len=None, q_offset=None) -> torch.Tensor:
+    """Dense multi-head attention, the oracle (``repro/kernels/ref.py``
+    ``attention``) and the decode path (``ops.attention_ref``).
+
+    q: (B, S, H, D); k, v: (B, T, Hkv, D) with H % Hkv == 0.  Scores in
+    fp32, masked to ``NEG_INF``, softmax over T, cast to q's dtype.
+    ``kv_valid_len`` (B,): only positions < len attend (decode);
+    ``q_offset`` (B,): absolute position of q[:, 0] (decode: the cache
+    index).  Both may be ints or tensors on q's device.
+    """
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if rep > 1:
+        kf = kf.repeat_interleave(rep, dim=2)
+        vf = vf.repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", qf, kf) / (D ** 0.5)
+    dev = q.device
+    q_pos = torch.arange(S, device=dev)[None, :, None]          # (1, S, 1)
+    if q_offset is not None:
+        q_pos = q_pos + (q_offset if isinstance(q_offset, int)
+                         else q_offset.reshape(-1, 1, 1))        # (B, S, 1)
+    k_pos = torch.arange(T, device=dev)[None, None, :]          # (1, 1, T)
+    mask = torch.ones((q_pos.shape[0], S, T), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    if kv_valid_len is not None:
+        mask &= k_pos < (kv_valid_len if isinstance(kv_valid_len, int)
+                         else kv_valid_len.reshape(-1, 1, 1))
+    scores = scores.masked_fill(~mask[:, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, vf)
+    return out.to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """The plain version of the ``flash_attention`` kernel: a loop over key
+    tiles of ``_PLAIN_BLOCK_K`` with the online softmax of the Pallas kernel's
+    ``_attn_kernel`` (``repro/kernels/flash_attention.py``), all query rows
+    at once.
+
+    Per tile: fp32 scores × ``1/sqrt(D)``, masked to ``NEG_INF``; the
+    running max ``m``, ``p = exp(s - m_new)`` zeroed where masked,
+    ``alpha = 0`` where the previous max is still ``NEG_INF``; at the end
+    ``l == 0`` becomes 1 and ``acc / l`` is cast to q's dtype.  Any S and
+    T: the last tile is ragged.  q: (B, S, H, D); k, v: (B, T, Hkv, D).
+    """
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / (D ** 0.5)
+    # (B, Hkv, rep·S, D): the rep query heads of one kv head share its tiles
+    qf = q.float().reshape(B, S, Hkv, rep, D).permute(0, 2, 3, 1, 4) \
+        .reshape(B, Hkv, rep * S, D)
+    kf = k.float().permute(0, 2, 1, 3)                  # (B, Hkv, T, D)
+    vf = v.float().permute(0, 2, 1, 3)
+    dev = q.device
+    q_pos = torch.arange(S, device=dev).repeat(rep)[:, None]   # (rep·S, 1)
+    m = torch.full((B, Hkv, rep * S), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, rep * S), device=dev)
+    acc = torch.zeros((B, Hkv, rep * S, D), device=dev)
+    for k0 in range(0, T, _PLAIN_BLOCK_K):
+        k1 = min(k0 + _PLAIN_BLOCK_K, T)
+        if causal and k0 > S - 1:
+            break               # every later tile is above the diagonal
+        s = torch.matmul(qf, kf[:, :, k0:k1].transpose(-1, -2)) * scale
+        k_pos = torch.arange(k0, k1, device=dev)[None, :]
+        mask = torch.ones((rep * S, k1 - k0), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask, p, torch.zeros((), device=dev))
+        alpha = torch.where(m == NEG_INF, torch.zeros((), device=dev),
+                            torch.exp(m - m_new))
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(p, vf[:, :, k0:k1])
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones((), device=dev), l)
+    out = (acc / l[..., None]).to(q.dtype)
+    return out.reshape(B, Hkv, rep, S, D).permute(0, 3, 1, 2, 4) \
+        .reshape(B, S, H, D)

@@ -1,6 +1,7 @@
 """``repro_torch`` stands alone: it imports neither ``jax`` nor anything of
 the JAX package ``repro``, and its entry points default to CUDA and raise
-on a host without it.  Both checks run in a fresh interpreter."""
+on a host without it (the Gauss–Seidel and Level-B benches, the serving
+CLI and ``LMAdapter``).  Both checks run in a fresh interpreter."""
 
 import json
 import os
@@ -46,9 +47,27 @@ try:
     no_device_sync = "ran"
 except RuntimeError as e:
     no_device_sync = "raised: " + str(e)
+from repro_torch.launch import serve
+try:
+    serve.main(["--scale", "smoke", "--batch", "1", "--gen", "2"])
+    no_device_serve = "ran"
+except RuntimeError as e:
+    no_device_serve = "raised: " + str(e)
+from repro_torch import configs
+from repro_torch.models import model as port_model
+from repro_torch.serving.lm import LMAdapter
+cfg = configs.smoke("granite-3-2b")
+try:
+    LMAdapter(cfg, port_model.init(cfg, device="cpu"), prompt_len=4,
+              gen_len=2)
+    no_device_lm = "ran"
+except RuntimeError as e:
+    no_device_lm = "raised: " + str(e)
 print(json.dumps({"modules": mods, "bad": bad, "cuda": torch.cuda
                   .is_available(), "no_device": no_device,
-                  "no_device_sync": no_device_sync}))
+                  "no_device_sync": no_device_sync,
+                  "no_device_serve": no_device_serve,
+                  "no_device_lm": no_device_lm}))
 """
 
 
@@ -74,12 +93,18 @@ def test_port_imports_no_jax_and_no_reference_package(isolated):
                 "repro_torch.bench.gauss_seidel", "repro_torch.obs.trace",
                 "repro_torch.core.mesh", "repro_torch.core.lowering",
                 "repro_torch.core.overlap", "repro_torch.core.pipeline",
-                "repro_torch.bench.overlap"):
+                "repro_torch.bench.overlap", "repro_torch.core.resilience",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.models.model", "repro_torch.models.layers",
+                "repro_torch.configs.granite_3_2b",
+                "repro_torch.serving.engine", "repro_torch.serving.lm",
+                "repro_torch.serving.synthetic", "repro_torch.launch.serve"):
         assert mod in out["modules"]
 
 
 def test_entry_point_without_device_raises_on_cuda_less_host(isolated):
     assert isolated["cuda"] is False
-    for key in ("no_device", "no_device_sync"):
+    for key in ("no_device", "no_device_sync", "no_device_serve",
+                "no_device_lm"):
         assert isolated[key].startswith("raised:")
         assert "device='cpu'" in isolated[key]

@@ -1,0 +1,207 @@
+"""Parity of the port's model stack with the JAX package's.
+
+* The ten configs equal the reference's field by field (full and smoke).
+* ``params_from_reference`` loads ``repro.models.model.init`` of smoke
+  granite-3-2b; train-mode logits, prefill logits and cache, and four
+  teacher-forced decode steps then match ``repro.models.model.apply`` on
+  the same tokens.  fp32 within 1e-4 (both sides compute in fp32 on the
+  CPU; only summation orders differ).  bf16 within 5e-2 absolute plus
+  2e-2 relative: the two frameworks round bf16 activations at different
+  points (XLA rounds ``silu``, ``x * sigmoid(x)``, after each operation,
+  PyTorch once), one bf16 ulp (2^-8 relative) per rounding.  The largest
+  values compared are the k/v cache entries (up to 4.6, where one ulp is
+  2^-5 = 0.031), and RoPE's rotation can carry that absolute error onto a
+  small entry; measured: 0.031 in the cache, 0.0078 in the logits.
+* A config whose pattern holds an unported block kind raises.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jax_configs
+from repro.models import config as jax_config
+from repro.models import model as jax_model
+from repro_torch import configs
+from repro_torch.models import config, inputs, layers
+from repro_torch.models import model as port_model
+
+B, S, DECODE_STEPS = 2, 12, 4
+
+
+def test_all_configs_equal_the_reference():
+    assert configs.ARCHS == jax_configs.ARCHS
+    assert configs._ALIASES == jax_configs._ALIASES
+    for arch in configs.ARCHS:
+        for getter in ("get", "smoke"):
+            port = getattr(configs, getter)(arch)
+            ref = getattr(jax_configs, getter)(arch)
+            assert dataclasses.asdict(port) == dataclasses.asdict(ref), arch
+            assert port.repeats == ref.repeats
+            assert port.head_dim == ref.head_dim
+            assert port.activation_dtype == getattr(torch, ref.dtype)
+        assert configs.get(arch.replace("_", "-")) == configs.get(arch)
+    assert [dataclasses.asdict(s) for s in config.ALL_SHAPES] == \
+        [dataclasses.asdict(s) for s in jax_config.ALL_SHAPES]
+    for arch in configs.ARCHS:
+        assert [s.name for s in config.applicable_shapes(configs.get(arch))] \
+            == [s.name for s in jax_config.applicable_shapes(
+                jax_configs.get(arch))]
+
+
+def _to_numpy(tree):
+    return jax.tree_util.tree_map(
+        lambda x: np.asarray(jnp.asarray(x, jnp.float32)), tree)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def pair(request):
+    """(dtype, jax cfg, jax params, port cfg, port model) for smoke
+    granite-3-2b, the port holding the reference's weights."""
+    dtype = request.param
+    jcfg = dataclasses.replace(jax_configs.smoke("granite-3-2b"),
+                               dtype=dtype)
+    pcfg = dataclasses.replace(configs.smoke("granite-3-2b"), dtype=dtype)
+    params = jax_model.init(jcfg, jax.random.PRNGKey(0))
+    model = port_model.params_from_reference(pcfg, _to_numpy(params),
+                                             device="cpu")
+    return dtype, jcfg, params, pcfg, model
+
+
+def _tol(dtype):
+    return dict(atol=1e-4, rtol=1e-4) if dtype == "float32" \
+        else dict(atol=5e-2, rtol=2e-2)
+
+
+def test_params_from_reference_holds_every_leaf(pair):
+    dtype, jcfg, params, pcfg, model = pair
+    n_ref = sum(int(x.size) for x in jax.tree_util.tree_leaves(params))
+    assert port_model.param_count(model) == n_ref
+    w = params["layers"]["L0_0_attn"]["wq"]           # (repeats, d, H·dh)
+    for r, unit in enumerate(model.units):
+        got = unit.blocks["L0_0_attn"].wq
+        assert got.dtype == getattr(torch, dtype)
+        np.testing.assert_array_equal(_f32(got), _f32(w[r]))
+    np.testing.assert_array_equal(_f32(model.embed), _f32(params["embed"]))
+
+
+def test_train_logits_match(pair):
+    dtype, jcfg, params, pcfg, model = pair
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab, (B, S))
+    want, _, _ = jax_model.apply(params, jcfg,
+                                 {"tokens": jnp.asarray(toks, jnp.int32)},
+                                 mode="train")
+    with torch.no_grad():
+        got, cache = port_model.apply(model,
+                                      {"tokens": torch.from_numpy(toks)},
+                                      mode="train")
+    assert cache is None and got.shape == (B, S, jcfg.vocab)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+def test_prefill_and_decode_match(pair):
+    """Prefill into a fixed-size cache (last-position logits, k/v at
+    [0, S)), then four teacher-forced decode steps, each extending the
+    cache in place, against the reference's prefill + ``pad_cache`` +
+    decode."""
+    dtype, jcfg, params, pcfg, model = pair
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, jcfg.vocab, (B, S))
+    forced = rng.integers(0, jcfg.vocab, (DECODE_STEPS, B))
+    total = S + DECODE_STEPS
+    want, jcache, _ = jax_model.apply(
+        params, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)},
+        mode="prefill")
+    jcache = jax_model.pad_cache(jcfg, jcache, total)
+    cache = port_model.init_cache(pcfg, B, total, device="cpu")
+    with torch.no_grad():
+        got, cache2 = port_model.apply(model,
+                                       {"tokens": torch.from_numpy(toks)},
+                                       mode="prefill", cache=cache)
+    assert cache2 is cache and got.shape == (B, 1, jcfg.vocab)
+    np.testing.assert_allclose(_f32(got), _f32(want[:, -1:]), **_tol(dtype))
+    for name, kv in jcache.items():
+        for n in ("k", "v"):
+            np.testing.assert_allclose(_f32(cache[name][n]), _f32(kv[n]),
+                                       **_tol(dtype))
+    decode = jax.jit(lambda p, c, b, i: jax_model.apply(
+        p, jcfg, b, mode="decode", cache=c, cache_index=i)[:2])
+    for i in range(DECODE_STEPS):
+        step = {"tokens": jnp.asarray(forced[i][:, None], jnp.int32)}
+        want, jcache = decode(params, jcache, step, jnp.int32(S + i))
+        with torch.no_grad():
+            got, cache = port_model.apply(
+                model, {"tokens": torch.from_numpy(forced[i][:, None])},
+                mode="decode", cache=cache, cache_index=S + i)
+        assert got.shape == (B, 1, jcfg.vocab)
+        np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+def test_prefill_without_cache_allocates_one():
+    cfg = dataclasses.replace(configs.smoke("granite-3-2b"), dtype="float32")
+    model = port_model.init(cfg, seed=3, device="cpu")
+    toks = inputs.make_batch(cfg, batch=1, seq=6, kind="prefill",
+                             device="cpu")
+    with torch.no_grad():
+        logits, cache = port_model.apply(model, toks, mode="prefill")
+    assert logits.shape == (1, 1, cfg.vocab) and torch.isfinite(logits).all()
+    k = cache["L0_0_attn"]["k"]
+    assert k.shape == (cfg.repeats, 1, 6, cfg.n_kv_heads, cfg.head_dim)
+
+
+def test_init_is_seeded_and_scaled():
+    cfg = configs.smoke("granite-3-2b")
+    a = port_model.init(cfg, seed=0, device="cpu")
+    b = port_model.init(cfg, seed=0, device="cpu")
+    c = port_model.init(cfg, seed=1, device="cpu")
+    assert all(torch.equal(x, y) for x, y in zip(a.parameters(),
+                                                 b.parameters()))
+    assert not torch.equal(a.embed, c.embed)
+    assert a.embed.dtype == torch.bfloat16
+    assert abs(a.embed.float().std().item() - 0.02) < 2e-3
+    wd = a.units[0].blocks["L0_1_mlp"].wd.float()
+    assert abs(wd.std().item() - cfg.d_ff ** -0.5) < 0.1 * cfg.d_ff ** -0.5
+    assert torch.equal(a.final_norm.scale, torch.ones(cfg.d_model))
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("zamba2-2.7b", "mamba2"), ("xlstm-350m", "mlstm"),
+    ("olmoe-1b-7b", "moe"), ("mixtral-8x22b", "moe")])
+def test_unported_block_kind_raises(arch, kind):
+    with pytest.raises(NotImplementedError, match=repr(kind)):
+        port_model.Model(configs.smoke(arch), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        layers.check_supported(configs.get(arch))
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-15b", "hubert-xlarge"])
+def test_layernorm_gelu_archs_match(arch):
+    """The other ported paths (LayerNorm, tanh GeLU, untied head, the
+    audio frontend, bidirectional attention) in fp32 train mode."""
+    jcfg = dataclasses.replace(jax_configs.smoke(arch), dtype="float32")
+    pcfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+    params = jax_model.init(jcfg, jax.random.PRNGKey(4))
+    model = port_model.params_from_reference(pcfg, _to_numpy(params),
+                                             device="cpu")
+    rng = np.random.default_rng(4)
+    if jcfg.frontend == "audio":
+        x = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
+        jb, pb = {"embeds": jnp.asarray(x)}, {"embeds": torch.from_numpy(x)}
+    else:
+        toks = rng.integers(0, jcfg.vocab, (B, S))
+        jb = {"tokens": jnp.asarray(toks, jnp.int32)}
+        pb = {"tokens": torch.from_numpy(toks)}
+    want, _, _ = jax_model.apply(params, jcfg, jb, mode="train")
+    with torch.no_grad():
+        got, _ = port_model.apply(model, pb, mode="train")
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-4, rtol=1e-4)
