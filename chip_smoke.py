@@ -55,8 +55,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     shapes of the JAX package's kernel test, S = T = 1000 and S = 1 with
     T = 2080, and the prefill shape of the smoke-scale granite-3-2b that
     the serving CLI runs by default (1, 32, 4/2, 16), in fp32 and bf16,
-    then granite-3-2b's prefill shape (1, 2048, 32/8, 64) in bf16 (the
-    main path's) and in fp32 (the same tiling held to fp32's tolerance) —
+    then granite-3-2b's prefill shape (1, 2048, 32/8, 64) and zamba2-2.7b's
+    shared-attention shape (1, 2048, 32/32, 80), each in bf16 (the main
+    path's) and in fp32 (the same tiling held to fp32's tolerance) —
     within 2e-5 (fp32) and 2e-2 (bf16), and two calls bitwise equal.
 11. The serving main path: granite-3-2b at full width and depth
     (2,533,531,648 parameters, bf16, random weights from seed 0) served
@@ -69,17 +70,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``SERVE_LOGIT_RTOL`` and in its first token where the plain path's
     top-1/top-2 margin exceeds that tolerance.  One request alone gives
     prefill ms and decode ms per token.
-12. Timing of ``flash_attention`` at granite's prefill shape, as in phase
-    5, beside ``scaled_dot_product_attention`` (``library_ms``).
+12. Timing of ``flash_attention`` at granite's prefill shape (the
+    ``kernels`` line's) and at zamba2's shared-attention shape, as in
+    phase 5, beside ``scaled_dot_product_attention`` (``library_ms``).
+13. ``mamba2_ssd`` against its plain version on the card: the JAX
+    package's kernel-test shapes, p = n = 8, smoke zamba2-2.7b's prefill,
+    p = n = 128 at chunk 256 and a chunk of 12, in fp32 and bf16, from a
+    zero and a random initial state — y within 2e-5 (fp32) and 2e-2
+    (bf16), the state within 1e-3, two calls bitwise equal; s = 24 and 12
+    through ``ops.mamba2_ssd`` (padding, a short chunk); two halves chained
+    through the final state equal the whole; zamba2-2.7b's prefill shape
+    x (1, 2048, 80, 64), B/C (1, 2048, 64), chunk 256, in fp32 and bf16,
+    each error stated as max|diff| / max|plain|.
+14. The zamba2 serving path: zamba2-2.7b at full width and depth
+    (2,435,777,440 parameters: 54 Mamba2 blocks and one shared attention
+    block called after every sixth), as phase 11 — identical streams on
+    both legs, ``mamba2_ssd`` launched exactly 54 x 4 and
+    ``flash_attention`` 9 x 4 times per leg (prefill only), one request on
+    the plain versions (``ssd_impl="ref"``, ``attn_impl="ref"``) within
+    ``SERVE_LOGIT_RTOL``.
+15. Timing of ``mamba2_ssd`` at zamba2's prefill shape, as in phase 5 (no
+    PyTorch call computes the scan: ``library_ms`` is null).
 
 Prints the per-version wall time, the wall time of each ``sync_grads``
-run, tokens/s and p50/p99 token latency per serving leg, the ``kernels``
-JSON line, the card's name and power limit, and last ``{"ok": true,
+run, tokens/s and p50/p99 token latency per serving leg of each model,
+the ``kernels`` JSON line (six kernels), the card's name and power limit,
+and last ``{"ok": true,
 "device": {...}}``.  It imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -705,10 +727,14 @@ FLASH_CASES = (
     (1, 32, 32, 4, 2, 16, True, None),
 )
 GRANITE_PREFILL = (1, 2048, 2048, 32, 8, 64, True, None)
+# zamba2-2.7b's shared attention: 32 heads of dim 80 over 32 kv heads
+ZAMBA_PREFILL = (1, 2048, 2048, 32, 32, 80, True, None)
 # tests/test_kernels.py's tolerances (atol = rtol), compared in fp32
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# Phase 11: granite-3-2b at full width and depth, served on one card.
+# Phases 11 and 14: granite-3-2b and zamba2-2.7b at full width and depth,
+# served on one card.
 GRANITE_PARAMS = 2_533_531_648
+ZAMBA_PARAMS = 2_435_777_440
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS = 4, 2048, 32, 4
 # The kernel path's prefill logits against the plain attention's, as
 # max|diff| / max|plain logits|.  Both attentions read the same bf16 q, k,
@@ -717,7 +743,8 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS = 4, 2048, 32, 4
 # elements that straddle a rounding boundary, and 40 layers of bf16
 # matmuls and residual adds carry those flips to the logits.  So: the bf16
 # tolerance of the kernel test (2e-2), widened 2.5x for the depth, as the
-# CPU model test widens it for two layers (5e-2).
+# CPU model test widens it for two layers (5e-2).  zamba2's 54 SSD scans
+# round y to bf16 the same way and are held to the same gate.
 SERVE_LOGIT_RTOL = 5e-2
 BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 
@@ -738,7 +765,8 @@ def check_flash_attention(fa, ref, device) -> float:
     import torch
     worst = 0.0
     cases = [(c, dt) for dt in ("float32", "bfloat16") for c in FLASH_CASES]
-    cases += [(GRANITE_PREFILL, "bfloat16"), (GRANITE_PREFILL, "float32")]
+    cases += [(c, dt) for c in (GRANITE_PREFILL, ZAMBA_PREFILL)
+              for dt in ("bfloat16", "float32")]
     for case, dt in cases:
         causal, window = case[6], case[7]
         q, k, v = _qkv(case, getattr(torch, dt), device, seed=sum(case[:6]))
@@ -764,32 +792,37 @@ def check_flash_attention(fa, ref, device) -> float:
     return worst
 
 
-def serving_main_path(fa, device) -> dict:
-    """Phase 11: granite-3-2b at full width and depth served through the
-    port's engine on both completion legs; returns what the run measured
-    and the kernel's launches over both legs."""
+def serving_main_path(arch: str, n_params: int, width: tuple,
+                      kernels: dict, plain: dict, device) -> dict:
+    """Phases 11 and 14: ``arch`` at full width and depth (``width`` is
+    its (n_layers, d_model, n_heads, n_kv_heads)) served through the
+    port's engine on both completion legs.  ``kernels`` maps each kernel's
+    name to (its wrapper, launches per request): every leg launches each
+    exactly that many times per request (prefill only); ``plain`` names the
+    ``*_impl`` arguments that put one request on the plain versions.
+    Returns what the run measured and each kernel's launches over both
+    legs."""
     import torch
     from repro_torch import configs
     from repro_torch.models import model as port_model
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.serving.lm import LMAdapter
-    cfg = configs.get("granite-3-2b")
-    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads) != \
-            (40, 2048, 32, 8):
-        raise AssertionError(f"granite-3-2b config is not full width: {cfg}")
+    cfg = configs.get(arch)
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads) != width:
+        raise AssertionError(f"{arch} config is not full width: {cfg}")
     t0 = time.perf_counter()
     model = port_model.init(cfg, seed=0, device=device)
     torch.cuda.synchronize()
     n_par = port_model.param_count(model)
-    if n_par != GRANITE_PARAMS:
-        raise AssertionError(f"granite-3-2b has {n_par} parameters, "
-                             f"expected {GRANITE_PARAMS}")
-    log(f"granite-3-2b: {n_par} parameters in bf16, "
+    if n_par != n_params:
+        raise AssertionError(f"{arch} has {n_par} parameters, expected "
+                             f"{n_params}")
+    log(f"{arch}: {n_par} parameters in bf16, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, init "
         f"{time.perf_counter() - t0:.3f} s")
     adapter = LMAdapter(cfg, model, prompt_len=SERVE_PROMPT,
                         gen_len=SERVE_GEN, device=device)
-    out = {"legs": {}}
+    out = {"legs": {}, "launches": dict.fromkeys(kernels, 0)}
 
     # one request alone, step by step: prefill ms and decode ms per token
     adapter.warmup()
@@ -805,119 +838,287 @@ def serving_main_path(fa, device) -> dict:
     del state
     out["prefill_ms"] = (t1 - t0) * 1e3
     out["decode_ms_per_token"] = (t2 - t1) * 1e3 / (SERVE_GEN - 1)
-    log(f"one request alone: prefill {out['prefill_ms']:.3f} ms "
+    log(f"{arch}, one request alone: prefill {out['prefill_ms']:.3f} ms "
         f"({SERVE_PROMPT} tokens), decode {out['decode_ms_per_token']:.3f} "
         f"ms/token")
 
-    streams, launches = {}, 0
+    streams = {}
     for leg in ("event", "blocking"):
         adapter.warmup()
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = 0
+        for fn, _ in kernels.values():
+            fn.launches = 0
         reqs = [Request(rid=i, prompt=1000 + i, gen_len=SERVE_GEN)
                 for i in range(SERVE_REQUESTS)]
         rep = ServingEngine(adapter, slots=SERVE_SLOTS, completion=leg,
                             num_workers=SERVE_SLOTS).run(reqs)
         torch.cuda.synchronize()
-        n = fa.flash_attention.launches
-        launches += n
         peak = torch.cuda.max_memory_allocated() / 2**30
         for r in reqs:
             r.cache = None
-        if n != cfg.n_layers * SERVE_REQUESTS:
-            raise AssertionError(f"{leg} leg: flash_attention launched {n} "
-                                 f"times, expected {cfg.n_layers} x "
-                                 f"{SERVE_REQUESTS} (prefill only)")
+        counts = {}
+        for name, (fn, per_request) in kernels.items():
+            counts[name] = n = fn.launches
+            out["launches"][name] += n
+            if n != per_request * SERVE_REQUESTS:
+                raise AssertionError(f"{arch} {leg} leg: {name} launched {n} "
+                                     f"times, expected {per_request} x "
+                                     f"{SERVE_REQUESTS} (prefill only)")
         for rid, toks in rep.outputs.items():
             if len(toks) != SERVE_GEN or not all(
                     0 <= t < cfg.vocab for t in toks):
-                raise AssertionError(f"{leg} leg: request {rid} emitted "
-                                     f"{toks}")
+                raise AssertionError(f"{arch} {leg} leg: request {rid} "
+                                     f"emitted {toks}")
         streams[leg] = rep.outputs
         out["legs"][leg] = {"tokens_per_s": rep.tokens_per_s,
                             "p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms,
                             "wall_s": rep.wall_s, "peak_gib": peak}
-        log(f"serve {rep.summary()}; flash_attention launches {n}; peak "
+        log(f"serve {arch} {rep.summary()}; launches {counts}; peak "
             f"allocated {peak:.2f} GiB")
     if streams["event"] != streams["blocking"]:
-        raise AssertionError("the event and blocking legs emitted different "
-                             "token streams")
-    log(f"serve: both legs emitted identical streams; request 0: "
+        raise AssertionError(f"{arch}: the event and blocking legs emitted "
+                             f"different token streams")
+    log(f"serve {arch}: both legs emitted identical streams; request 0: "
         f"{streams['event'][0]}")
 
-    # the plain attention on the same weights and prompt
+    # the plain versions on the same weights and prompt
     prompt = adapter.prompt_tokens(Request(rid=0, prompt=1000, gen_len=1))
     with torch.inference_mode():
         toks = {"tokens": prompt.to(device)}
         lk, _ = port_model.apply(model, toks, mode="prefill")
-        lr, _ = port_model.apply(model, toks, mode="prefill",
-                                 attn_impl="ref")
+        lr, _ = port_model.apply(model, toks, mode="prefill", **plain)
     lk, lr = lk[0, -1].float(), lr[0, -1].float()
     scale = float(lr.abs().max())
     diff = float((lk - lr).abs().max())
     out["logit_rel_diff"] = diff / scale
     if not diff <= SERVE_LOGIT_RTOL * scale:
-        raise AssertionError(f"prefill logits: kernel vs plain attention "
-                             f"max |diff| {diff} > {SERVE_LOGIT_RTOL} x "
-                             f"{scale}")
+        raise AssertionError(f"{arch} prefill logits: kernels vs plain "
+                             f"versions max |diff| {diff} > "
+                             f"{SERVE_LOGIT_RTOL} x {scale}")
     top2 = torch.topk(lr, 2).values
     margin = float(top2[0] - top2[1])
-    plain = LMAdapter(cfg, model, prompt_len=SERVE_PROMPT, gen_len=SERVE_GEN,
-                      device=device, attn_impl="ref")
-    before = fa.flash_attention.launches
-    ref_stream = ServingEngine(plain, slots=1, completion="blocking",
+    plain_ad = LMAdapter(cfg, model, prompt_len=SERVE_PROMPT,
+                         gen_len=SERVE_GEN, device=device, **plain)
+    before = {k: fn.launches for k, (fn, _) in kernels.items()}
+    ref_stream = ServingEngine(plain_ad, slots=1, completion="blocking",
                                num_workers=1).run(
         [Request(rid=0, prompt=1000, gen_len=SERVE_GEN)]).outputs[0]
-    if fa.flash_attention.launches != before:
-        raise AssertionError("attn_impl='ref' launched the kernel")
+    if {k: fn.launches for k, (fn, _) in kernels.items()} != before:
+        raise AssertionError(f"{arch}: {plain} launched a kernel")
     if margin > SERVE_LOGIT_RTOL * scale and \
             ref_stream[0] != streams["event"][0][0]:
-        raise AssertionError(f"first token {streams['event'][0][0]} differs "
-                             f"from the plain path's {ref_stream[0]} with a "
-                             f"top-1/top-2 margin of {margin}")
+        raise AssertionError(f"{arch}: first token {streams['event'][0][0]} "
+                             f"differs from the plain path's {ref_stream[0]} "
+                             f"with a top-1/top-2 margin of {margin}")
     agree = sum(a == b for a, b in zip(ref_stream, streams["event"][0]))
     out["plain_tokens_agree"] = agree
-    log(f"plain attention (attn_impl='ref'), request 0: prefill logits max "
+    log(f"{arch}, plain versions ({plain}), request 0: prefill logits max "
         f"|kernel - plain| {diff:.4g} = {diff / scale:.4g} of max |logit| "
         f"{scale:.4g} (rtol {SERVE_LOGIT_RTOL}); top-1/top-2 margin "
         f"{margin:.4g}; {agree} of {SERVE_GEN} tokens agree with the "
         f"kernel path's stream")
-    out["launches"] = launches
     return out
 
 
 def time_flash_attention(fa, ref, device) -> dict:
-    """Phase 12: times per call at granite's prefill shape, bf16 (a ring of
-    four input sets, 84 MB, larger than the 50 MB L2), as in phase 5, and
-    one PyTorch call computing the same function (``library_ms``:
-    ``scaled_dot_product_attention``, causal, GQA)."""
+    """Phase 12: times per call at granite's prefill shape and at zamba2's
+    shared-attention shape, bf16 (rings of four input sets, 84 and 168 MB,
+    larger than the 50 MB L2), as in phase 5, and one PyTorch call
+    computing the same function (``library_ms``:
+    ``scaled_dot_product_attention``, causal, GQA).  Returns granite's."""
     import torch
     import torch.nn.functional as F
-    B, S, T, H, Hkv, D = GRANITE_PREFILL[:6]
-    ring = [_qkv(GRANITE_PREFILL, torch.bfloat16, device, seed=50 + i)
+    out = {}
+    for case in (GRANITE_PREFILL, ZAMBA_PREFILL):
+        B, S, T, H, Hkv, D = case[:6]
+        ring = [_qkv(case, torch.bfloat16, device, seed=50 + i)
+                for i in range(4)]
+        sdpa = [[t.transpose(1, 2) for t in qkv] for qkv in ring]
+        t = {"ms": graph_ms(lambda i: fa.flash_attention(*ring[i % 4]), 8),
+             "plain_ms": graph_ms(lambda i: ref.flash_attention(
+                 *ring[i % 4]), 4),
+             "library_ms": graph_ms(lambda i: F.scaled_dot_product_attention(
+                 *sdpa[i % 4], is_causal=True, enable_gqa=True), 8),
+             "wrapper_ms": time_ms(lambda i: fa.flash_attention(
+                 *ring[i % 4]), 40)}
+        lib = F.scaled_dot_product_attention(*sdpa[0], is_causal=True,
+                                             enable_gqa=True).transpose(1, 2)
+        lib_err = _max_abs_diff(lib, fa.flash_attention(*ring[0]))
+        flops = 2 * 2 * S * T * D * H / 2          # QK^T and PV, causal half
+        nbytes = 2 * (2 * B * S * H * D + 2 * B * T * Hkv * D)
+        t_ops = flops / BF16_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t["bound_ms"] = max(t_ops, t_bytes)
+        t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"flash_attention {case} bf16: device {t['ms']:.6f} ms (plain "
+            f"{t['plain_ms']:.6f}, SDPA {t['library_ms']:.6f}, max |SDPA - "
+            f"kernel| {lib_err:.3g}), eager wrapper {t['wrapper_ms']:.6f}, "
+            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        out[case] = t
+        del ring, sdpa, lib
+    return out[GRANITE_PREFILL]
+
+
+# Phase 13 shapes (b, s, h, p, n, chunk): the JAX package's kernel tests
+# (tests/test_kernels.py), p = n = 8 at chunk 16, smoke zamba2-2.7b's
+# prefill at the serving CLI's default prompt of 32, the widest p and n at
+# the longest chunk, and a chunk of 12; then zamba2-2.7b's prefill.
+SSD_CASES = (
+    (2, 128, 4, 32, 16, 32),
+    (1, 256, 2, 64, 64, 64),
+    (1, 64, 8, 16, 32, 64),
+    (2, 64, 2, 8, 8, 16),
+    (1, 32, 2, 64, 16, 16),
+    (1, 512, 2, 128, 128, 256),
+    (1, 12, 2, 64, 16, 12),
+)
+ZAMBA_SSD = (1, 2048, 80, 64, 64, 256)
+# y as tests/test_kernels.py's _tol states it (atol = rtol), the state as
+# its 1e-3; at zamba2's shape each as max|diff| / max|plain|.
+SSD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_STATE_TOL = 1e-3
+
+
+def _ssd_inputs(case, dtype, device, seed):
+    """x, dt = softplus(normal), A = -exp(normal) fp32, B, C from a seed."""
+    import torch
+    import torch.nn.functional as F
+    b, s, h, p, n = case[:5]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x = normal(b, s, h, p).to(dtype)
+    dt = F.softplus(normal(b, s, h)).to(dtype)
+    A = -torch.exp(normal(h))
+    return x, dt, A, normal(b, s, n).to(dtype), normal(b, s, n).to(dtype)
+
+
+def check_mamba2_ssd(ssd, ref, device) -> float:
+    """Phase 13: the kernel against its plain version on the card at every
+    shape, in fp32 and bf16, from a zero and a random initial state, and
+    bitwise repeatable; any s through ``ops.mamba2_ssd`` (s = 24 pads to
+    32, s = 12 runs a chunk of 12); two halves chained through the final
+    state equal the whole; zamba2's prefill shape.  Returns the largest
+    |kernel - plain| of y at zamba2's shape (bf16)."""
+    import torch
+    from repro_torch.kernels import ops
+    worst = 0.0
+    cases = [(c, dt) for dt in ("float32", "bfloat16") for c in SSD_CASES]
+    cases += [(ZAMBA_SSD, "float32"), (ZAMBA_SSD, "bfloat16")]
+    for case, dt in cases:
+        b, s, h, p, n, chunk = case
+        args = _ssd_inputs(case, getattr(torch, dt), device, seed=sum(case))
+        init = torch.randn((b, h, p, n), device=device)
+        for ini in (None, init):
+            y, st = ssd.mamba2_ssd(*args, chunk=chunk, init_state=ini)
+            y2, st2 = ssd.mamba2_ssd(*args, chunk=chunk, init_state=ini)
+            yp, sp = ref.ssd_chunked(*args, chunk=chunk, init_state=ini)
+            torch.cuda.synchronize()
+            tag = (f"mamba2_ssd {dt} {case} "
+                   f"{'zero' if ini is None else 'random'} initial state")
+            if y.dtype != args[0].dtype or y.shape != args[0].shape or \
+                    st.dtype != torch.float32 or st.shape != (b, h, p, n):
+                raise AssertionError(f"{tag}: results {y.dtype} "
+                                     f"{tuple(y.shape)}, {st.dtype} "
+                                     f"{tuple(st.shape)}")
+            if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                raise AssertionError(f"{tag}: two calls differ")
+            tol = SSD_TOL[dt]
+            ey, es = _max_abs_diff(y, yp), _max_abs_diff(st, sp)
+            if case == ZAMBA_SSD:
+                ry = ey / float(yp.float().abs().max())
+                rs = es / float(sp.abs().max())
+                if not (ry <= tol and rs <= SSD_STATE_TOL):
+                    raise AssertionError(
+                        f"{tag}: max|diff| / max|plain| {ry:.3g} (y, "
+                        f"tolerance {tol}), {rs:.3g} (state, "
+                        f"{SSD_STATE_TOL})")
+                if dt == "bfloat16" and ini is None:
+                    worst = ey
+                log(f"{tag}: y max|diff| {ey:.3g} = {ry:.3g} of max|plain| "
+                    f"(tolerance {tol}), state {es:.3g} = {rs:.3g} "
+                    f"({SSD_STATE_TOL}), two calls bitwise equal")
+                continue
+            if not (torch.allclose(y.float(), yp.float(), atol=tol, rtol=tol)
+                    and torch.allclose(st, sp, atol=SSD_STATE_TOL,
+                                       rtol=SSD_STATE_TOL)):
+                raise AssertionError(f"{tag}: max |kernel - plain| {ey} (y, "
+                                     f"atol = rtol = {tol}), {es} (state)")
+            log(f"{tag}: max |kernel - plain| y {ey:.3g} (atol = rtol = "
+                f"{tol}), state {es:.3g} ({SSD_STATE_TOL}), two calls "
+                f"bitwise equal")
+    for s in (24, 12):
+        args = _ssd_inputs((2, s, 4, 32, 16), torch.float32, device, seed=s)
+        before = ssd.mamba2_ssd.launches
+        y, st = ops.mamba2_ssd(*args, chunk=16)
+        yp, sp = ops.mamba2_ssd(*args, chunk=16, impl="ref")
+        torch.cuda.synchronize()
+        if ssd.mamba2_ssd.launches != before + 1 or y.shape != yp.shape:
+            raise AssertionError(f"ops.mamba2_ssd s={s}: no kernel launch or "
+                                 f"shape {tuple(y.shape)}")
+        if not (torch.allclose(y, yp, atol=2e-5, rtol=2e-5) and
+                torch.allclose(st, sp, atol=1e-3, rtol=1e-3)):
+            raise AssertionError(f"ops.mamba2_ssd s={s} chunk 16: kernel "
+                                 f"and plain differ")
+        log(f"ops.mamba2_ssd s={s} chunk 16: kernel within 2e-5 of plain, "
+            f"y {tuple(y.shape)}")
+    x, dt, A, B, C = _ssd_inputs((1, 128, 2, 16, 16), torch.float32, device,
+                                 seed=3)
+    y_full, st_full = ssd.mamba2_ssd(x, dt, A, B, C, chunk=32)
+    y1, st1 = ssd.mamba2_ssd(x[:, :64].contiguous(), dt[:, :64].contiguous(),
+                             A, B[:, :64].contiguous(),
+                             C[:, :64].contiguous(), chunk=32)
+    y2, st2 = ssd.mamba2_ssd(x[:, 64:].contiguous(), dt[:, 64:].contiguous(),
+                             A, B[:, 64:].contiguous(),
+                             C[:, 64:].contiguous(), chunk=32,
+                             init_state=st1)
+    torch.cuda.synchronize()
+    if not (torch.allclose(torch.cat([y1, y2], 1), y_full, atol=2e-5,
+                           rtol=2e-5)
+            and torch.allclose(st2, st_full, atol=1e-4, rtol=1e-4)):
+        raise AssertionError("mamba2_ssd: two chained halves differ from "
+                             "the whole")
+    log("mamba2_ssd: two halves chained through the final state equal the "
+        "whole (2e-5 y, 1e-4 state)")
+    return worst
+
+
+def time_mamba2_ssd(ssd, ref, device) -> dict:
+    """Phase 15: times per call at zamba2's prefill shape, bf16 (a ring of
+    four input sets, 88 MB, larger than the 50 MB L2), as in phase 5.  No
+    single PyTorch call computes the chunked scan: ``library_ms`` is None.
+    The bound counts each input read once and each output written once
+    (x, dt, B, C, A, y and the final state; no initial state on the
+    prefill path) and the work of the lower triangles: per (chunk, head)
+    C B^T and its product with x dt over l(l+1)/2 entries, the carried
+    state's term and the state update, 2 FLOP per multiply-add."""
+    import torch
+    b, s, h, p, n, chunk = ZAMBA_SSD
+    ring = [_ssd_inputs(ZAMBA_SSD, torch.bfloat16, device, seed=60 + i)
             for i in range(4)]
-    sdpa = [[t.transpose(1, 2) for t in qkv] for qkv in ring]
-    t = {"ms": graph_ms(lambda i: fa.flash_attention(*ring[i % 4]), 8),
-         "plain_ms": graph_ms(lambda i: ref.flash_attention(*ring[i % 4]),
-                              4),
-         "library_ms": graph_ms(lambda i: F.scaled_dot_product_attention(
-             *sdpa[i % 4], is_causal=True, enable_gqa=True), 8),
-         "wrapper_ms": time_ms(lambda i: fa.flash_attention(*ring[i % 4]),
-                               40)}
-    lib = F.scaled_dot_product_attention(*sdpa[0], is_causal=True,
-                                         enable_gqa=True).transpose(1, 2)
-    lib_err = _max_abs_diff(lib, fa.flash_attention(*ring[0]))
-    flops = 2 * 2 * S * T * D * H / 2          # QK^T and PV, causal half
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * T * Hkv * D)
+    t = {"ms": graph_ms(lambda i: ssd.mamba2_ssd(*ring[i % 4], chunk=chunk),
+                        8),
+         "plain_ms": graph_ms(lambda i: ref.ssd_chunked(*ring[i % 4],
+                                                        chunk=chunk), 4),
+         "wrapper_ms": time_ms(lambda i: ssd.mamba2_ssd(*ring[i % 4],
+                                                        chunk=chunk), 40),
+         "library_ms": None}
+    tri = chunk * (chunk + 1) // 2
+    flops = 2 * (tri * n + tri * p + 2 * chunk * p * n) * (s // chunk) * h * b
+    nbytes = (2 * (2 * b * s * h * p + b * s * h + 2 * b * s * n)
+              + 4 * h + 4 * b * h * p * n)
     t_ops = flops / BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t["bound_ms"] = max(t_ops, t_bytes)
     t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"flash_attention {GRANITE_PREFILL} bf16: device {t['ms']:.6f} ms "
-        f"(plain {t['plain_ms']:.6f}, SDPA {t['library_ms']:.6f}, max "
-        f"|SDPA - kernel| {lib_err:.3g}), eager wrapper "
+    log(f"mamba2_ssd {ZAMBA_SSD} bf16: device {t['ms']:.6f} ms (plain "
+        f"{t['plain_ms']:.6f}, no library call), eager wrapper "
         f"{t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms "
-        f"({t['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        f"({t['bound_by']}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
     return t
 
 
@@ -929,6 +1130,7 @@ def main() -> int:
     from repro_torch.bench import gauss_seidel as gs
     from repro_torch.kernels import build, collective_stages as stages, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
     device = torch.device("cuda")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
@@ -960,13 +1162,30 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     flash_err = check_flash_attention(fa, ref, device)
-    serve = serving_main_path(fa, device)
+    serve = serving_main_path(
+        "granite-3-2b", GRANITE_PARAMS, (40, 2048, 32, 8),
+        {"flash_attention": (fa.flash_attention, 40)},
+        {"attn_impl": "ref"}, device)
+    gc.collect()        # the engine's reference cycles still hold the model
     torch.cuda.empty_cache()
     flash_t = time_flash_attention(fa, ref, device)
-    for leg, v in serve["legs"].items():
-        log(f"serve {leg}: {v['tokens_per_s']:.3f} tokens/s, p50 "
-            f"{v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms, wall "
-            f"{v['wall_s']:.3f} s, peak allocated {v['peak_gib']:.2f} GiB")
+
+    ssd_err = check_mamba2_ssd(ssd, ref, device)
+    torch.cuda.empty_cache()
+    zserve = serving_main_path(
+        "zamba2-2.7b", ZAMBA_PARAMS, (54, 2560, 32, 32),
+        {"mamba2_ssd": (ssd.mamba2_ssd, 54),
+         "flash_attention": (fa.flash_attention, 9)},
+        {"attn_impl": "ref", "ssd_impl": "ref"}, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_t = time_mamba2_ssd(ssd, ref, device)
+    for arch, run in (("granite-3-2b", serve), ("zamba2-2.7b", zserve)):
+        for leg, v in run["legs"].items():
+            log(f"serve {arch} {leg}: {v['tokens_per_s']:.3f} tokens/s, p50 "
+                f"{v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms, wall "
+                f"{v['wall_s']:.3f} s, peak allocated {v['peak_gib']:.2f} "
+                f"GiB")
 
     kernels = [{
         "name": "gs_stencil", "route": "cuda",
@@ -988,8 +1207,15 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:98",
-        "launches": serve["launches"], "max_abs_err": flash_err,
-        **flash_t})
+        "launches": (serve["launches"]["flash_attention"]
+                     + zserve["launches"]["flash_attention"]),
+        "max_abs_err": flash_err, **flash_t})
+    kernels.append({
+        "name": "mamba2_ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+        "replaces": "src/repro/kernels/mamba2_ssd.py:79",
+        "launches": zserve["launches"]["mamba2_ssd"], "max_abs_err": ssd_err,
+        **ssd_t})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

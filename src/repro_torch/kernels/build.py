@@ -50,6 +50,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         #  stream)
         "flash_attention_fwd": ((_P,) * 4 + (_I,) * 9 + (_P,), _I),
     },
+    "mamba2_ssd": {
+        # (x, dt, A, B, C, init or NULL, y, final state, b, s, h, p, n,
+        #  chunk, dtype, stream)
+        "mamba2_ssd_fwd": ((_P,) * 8 + (_I,) * 7 + (_P,), _I),
+    },
 }
 
 _lock = threading.Lock()

@@ -15,6 +15,7 @@ import torch
 
 from . import collective_stages as _stages
 from . import flash_attention as _flash
+from . import mamba2_ssd as _ssd
 from . import ref
 
 IMPLS = (None, "cuda", "ref")
@@ -43,6 +44,42 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 # Plain torch with no hand kernel, as in the JAX package: the decode path.
 attention_ref = ref.attention
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD
+# ---------------------------------------------------------------------------
+def mamba2_ssd(x, dt, A, B, C, *, chunk: int = 128, init_state=None,
+               impl: Optional[str] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan at any s: x (b, s, h, p), dt (b, s, h), A (h,),
+    B/C (b, s, n).  As ``repro/kernels/ops.py``: ``chunk = min(chunk, s)``
+    when the chunk does not divide s, and x/dt/B/C are zero-padded to a
+    multiple of it (dt = 0 on padded steps: decay 1 and no input, so the
+    final state is untouched) and y sliced back.  The Hopper kernel for
+    CUDA tensors (its plain version on the CPU), or with ``impl="ref"``
+    the plain ``ref.ssd_chunked`` on any device.  Returns (y, final state
+    fp32)."""
+    _check_impl("mamba2_ssd", impl)
+    s = x.shape[1]
+    chunk = min(chunk, s) if s % chunk else chunk
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
+    if impl == "ref":
+        y, st = ref.ssd_chunked(x, dt, A, B, C, chunk=chunk,
+                                init_state=init_state)
+    else:
+        y, st = _ssd.mamba2_ssd(x, dt, A, B, C, chunk=chunk,
+                                init_state=init_state)
+    return (y[:, :s] if pad else y), st
+
+
+# Plain torch with no hand kernel, as in the JAX package: the decode path.
+ssd_decode_step = ref.ssd_decode_step
 
 
 # ---------------------------------------------------------------------------

@@ -6,14 +6,17 @@ kernel wrappers, the oracle the CPU tests hold the port against the JAX
 package with, and the version ``chip_smoke.py`` compares each kernel to on
 the card.  Counterpart of the collective-stage oracles in
 ``repro/kernels/ref.py`` (``combine_stage``, ``quantize_stage``,
-``dequantize_stage`` and ``gs_stencil``), and of the attention oracles
+``dequantize_stage`` and ``gs_stencil``), of the attention oracles
 (``attention``, the dense oracle and decode path, and ``flash_attention``,
-the plain version of the attention kernel).
+the plain version of the attention kernel), and of the Mamba2 SSD ones
+(``ssd_chunked``, the plain version of the ``mamba2_ssd`` kernel;
+``ssd_sequential``, the stepwise oracle; ``ssd_decode_step``, the decode
+path).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -178,3 +181,134 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = (acc / l[..., None]).to(q.dtype)
     return out.reshape(B, Hkv, rep, S, D).permute(0, 3, 1, 2, 4) \
         .reshape(B, S, H, D)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD (state space dual) -- chunked scan
+# ---------------------------------------------------------------------------
+_SCAN_WARP = 32
+
+
+def _block_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum over the last axis in the ``mamba2_ssd`` kernel's
+    fixed order, so that both round it alike: within each group of 32 a
+    Hillis–Steele scan (``v[i] += v[i - off]`` for off = 1, 2, 4, 8, 16,
+    all i at once), then each group adds the totals of the groups before
+    it, summed in order.  (The segment sums are differences of these
+    cumsums, which reach hundreds over a chunk of 256; another summation
+    order moves them by ~1e-5.)"""
+    l = x.shape[-1]
+    g = -(-l // _SCAN_WARP)
+    v = torch.nn.functional.pad(x, (0, g * _SCAN_WARP - l))
+    v = v.reshape(tuple(x.shape[:-1]) + (g, _SCAN_WARP))
+    off = 1
+    while off < _SCAN_WARP:
+        v = torch.cat([v[..., :off], v[..., off:] + v[..., :-off]], dim=-1)
+        off *= 2
+    pre = [torch.zeros_like(v[..., 0, -1])]
+    for w in range(1, g):
+        pre.append(pre[-1] + v[..., w - 1, -1])
+    v = v + torch.stack(pre, dim=-1)[..., None]
+    return v.reshape(tuple(x.shape[:-1]) + (g * _SCAN_WARP,))[..., :l]
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """(..., T) -> (..., T, T) lower-triangular segment sums:
+    ``out[i, j] = sum_{j < k <= i} x[k]`` (as the difference of two
+    cumsums) for i >= j, -inf above the diagonal."""
+    T = x.shape[-1]
+    c = _block_cumsum(x)
+    d = c[..., :, None] - c[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return d.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, *, chunk: int,
+                init_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan (Mamba2's "ssd_minimal_discrete"), fp32 einsums --
+    ``repro/kernels/ref.py`` ``ssd_chunked`` and the plain version of the
+    ``mamba2_ssd`` kernel, whose cumsum order it takes
+    (:func:`_block_cumsum`).
+
+    x: (b, s, h, p); dt: (b, s, h) (> 0); A: (h,) (< 0); B, C: (b, s, n),
+    shared across heads; ``init_state`` (b, h, p, n).  ``s % chunk == 0``.
+    Returns (y (b, s, h, p) in x's dtype, final state (b, h, p, n) fp32).
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"ssd_chunked: s={s} is not a multiple of "
+                         f"chunk={chunk}")
+    nc = s // chunk
+    f32 = torch.float32
+    dtf = dt.to(f32)
+    xd = x.to(f32) * dtf[..., None]                     # discretised input
+    dA = dtf * A.to(f32)                                # (b, s, h)
+
+    def ch(t):                      # (b, s, ...) -> (b, nc, chunk, ...)
+        return t.reshape((b, nc, chunk) + tuple(t.shape[2:]))
+
+    xd_c = ch(xd)                                       # (b,c,l,h,p)
+    dA_c = ch(dA).permute(0, 3, 1, 2)                   # (b,h,c,l)
+    B_c = ch(B.to(f32))                                 # (b,c,l,n)
+    C_c = ch(C.to(f32))
+
+    # 1. intra-chunk (diagonal block) outputs
+    L = torch.exp(_segsum(dA_c))                        # (b,h,c,l,l)
+    Y_diag = torch.einsum("bcln,bcmn,bhclm,bcmhp->bclhp", C_c, B_c, L, xd_c)
+
+    # 2. per-chunk final states
+    dA_cum = _block_cumsum(dA_c)                        # (b,h,c,l)
+    decay_states = torch.exp(dA_cum[..., -1:] - dA_cum)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", B_c, decay_states, xd_c)
+
+    # 3. inter-chunk recurrence; prev[:, c] is the state ENTERING chunk c
+    chunk_decay = torch.exp(dA_cum[..., -1])            # (b,h,c)
+    state = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+             if init_state is None else init_state.to(f32))
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, :, c, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)              # (b,c,h,p,n)
+
+    # 4. chunk-input contribution
+    Y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", C_c, prev_states,
+                         torch.exp(dA_cum))
+    y = (Y_diag + Y_off).reshape(b, s, h, p).to(x.dtype)
+    return y, state
+
+
+def ssd_decode_step(state: torch.Tensor, xt: torch.Tensor, dtt: torch.Tensor,
+                    A: torch.Tensor, Bt: torch.Tensor, Ct: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent SSD step in fp32 (``repro/kernels/ref.py``
+    ``ssd_decode_step``): state (b, h, p, n), xt (b, h, p), dtt (b, h),
+    Bt/Ct (b, n).  Returns (new state, yt (b, h, p) fp32)."""
+    f32 = torch.float32
+    xt, dtt, Bt, Ct = (t.to(f32) for t in (xt, dtt, Bt, Ct))
+    decay = torch.exp(dtt * A.to(f32))[..., None, None]          # (b,h,1,1)
+    upd = torch.einsum("bhp,bn->bhpn", xt * dtt[..., None], Bt)
+    state = state * decay + upd
+    yt = torch.einsum("bhpn,bn->bhp", state, Ct)
+    return state, yt
+
+
+def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, *,
+                   init_state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stepwise oracle of :func:`ssd_chunked`: :func:`ssd_decode_step`
+    over every position.  Returns (y in x's dtype, final state fp32)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(s):
+        state, yt = ssd_decode_step(state, x[:, t], dt[:, t], A, B[:, t],
+                                    C[:, t])
+        ys.append(yt)
+    return torch.stack(ys, dim=1).to(x.dtype), state

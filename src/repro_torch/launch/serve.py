@@ -14,6 +14,8 @@ It runs on the CUDA device unless ``--device`` names another::
       --scale full --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --scale smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --scale smoke --device cpu
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ def main(argv=None) -> int:
     p.add_argument("--attn-impl", default=None, choices=["cuda", "ref"],
                    help="prefill attention: the Hopper kernel (default) "
                         "or its plain version")
+    p.add_argument("--ssd-impl", default=None, choices=["cuda", "ref"],
+                   help="prefill SSD scan of Mamba2 blocks: the Hopper "
+                        "kernel (default) or its plain version")
     args = p.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.scale == "smoke" \
@@ -57,7 +62,7 @@ def main(argv=None) -> int:
 
     adapter = LMAdapter(cfg, params, prompt_len=args.prompt_len,
                         gen_len=args.gen, device=args.device,
-                        attn_impl=args.attn_impl)
+                        attn_impl=args.attn_impl, ssd_impl=args.ssd_impl)
     adapter.warmup()
 
     engine = ServingEngine(adapter, slots=args.slots,

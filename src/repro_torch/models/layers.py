@@ -1,6 +1,7 @@
-"""Neural network blocks of the port: norms, RoPE, GQA attention, MLP —
-the counterparts of ``repro/models/layers.py`` (``norm_*``, ``rope_*``,
-``attn_*``, ``mlp_*``).
+"""Neural network blocks of the port: norms, RoPE, GQA attention, MLP, the
+Mamba2 (SSD) block and Zamba2's shared attention block — the counterparts
+of ``repro/models/layers.py`` (``norm_*``, ``rope_*``, ``attn_*``,
+``mlp_*``, ``mamba2_*``, ``shared_attn_*``).
 
 Each block is an ``nn.Module`` whose weights keep the JAX package's
 orientation ``(d_in, d_out)``, applied as ``x @ w``, so the reference's
@@ -8,23 +9,24 @@ parameters load without transposes (:func:`repro_torch.models.model
 .params_from_reference`).  Numerics policy as in the reference: weights and
 activations in ``cfg.dtype``; norms and RoPE in fp32, cast back.
 
-MoE, Mamba2, mLSTM, sLSTM and the shared-attention block are not ported
-yet: :func:`check_supported` raises for a config that uses them.
+MoE, mLSTM and sLSTM are not ported yet: :func:`check_supported` raises
+for a config that uses them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from .config import ModelConfig, ATTN, SWA, MLP
+from .config import ModelConfig, ATTN, SWA, MLP, MAMBA2, SHARED_ATTN
 
 Cache = Optional[Dict[str, torch.Tensor]]
-SUPPORTED = (ATTN, SWA, MLP)
+SUPPORTED = (ATTN, SWA, MLP, MAMBA2, SHARED_ATTN)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -167,3 +169,133 @@ class MLPBlock(nn.Module):
         else:
             h = F.gelu(x @ self.wu, approximate="tanh")
         return h @ self.wd
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (SSD)
+# ---------------------------------------------------------------------------
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``, rounding twice in bf16 as ``jax.nn.silu``
+    does (``F.silu`` rounds once)."""
+    return x * torch.sigmoid(x)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv (``layers.py`` ``_causal_conv``): x (B, S, C),
+    w (K, C), the previous K-1 inputs ``tail`` (B, K-1, C) or None (zeros).
+    Returns (y, the last K-1 inputs); the K products are summed in order
+    in x's dtype."""
+    K = w.shape[0]
+    S = x.shape[1]
+    if tail is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([tail.to(x.dtype), x], dim=1)
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + S] * w[i]
+    return y + b.to(x.dtype), xp[:, S:]
+
+
+class Mamba2(nn.Module):
+    """The Mamba2 block: projections, causal conv, SSD scan, gated RMSNorm.
+    Prefill runs the chunked scan through ``ops.mamba2_ssd`` (the Hopper
+    kernel on the card); a decode step is ``ops.ssd_decode_step``.
+
+    Numerics as the reference's: ``dt = softplus(x @ wdt + dt_bias)`` in
+    fp32, cast to the activation dtype before the scan but kept fp32 in
+    the decode step; ``A = -exp(A_log)``; ``y += xh * D`` in the
+    activation dtype; the gated RMSNorm ``norm(y * silu(z)) * gn`` in
+    fp32."""
+
+    def __init__(self, cfg: ModelConfig, device=None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        d, din, n, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, \
+            cfg.n_ssm_heads
+        dt, f32 = cfg.activation_dtype, torch.float32
+        conv_ch = din + 2 * n
+        self.wz = _param((d, din), dt, device)
+        self.wx = _param((d, din), dt, device)
+        self.wB = _param((d, n), dt, device)
+        self.wC = _param((d, n), dt, device)
+        self.wdt = _param((d, H), dt, device)
+        self.dt_bias = _param((H,), f32, device)
+        self.A_log = _param((H,), f32, device)
+        self.D = _param((H,), f32, device)
+        self.conv_w = _param((cfg.ssm_conv, conv_ch), dt, device)
+        self.conv_b = _param((conv_ch,), f32, device)
+        self.gn = _param((din,), f32, device)
+        self.out = _param((din, d), dt, device)
+
+    def forward(self, x: torch.Tensor, *, cache: Cache = None,
+                decode: bool = False,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """``cache`` is this block's ``state`` (B, H, P, n) fp32 and
+        ``conv`` (B, K-1, d_inner + 2n), written IN PLACE: prefill stores
+        the final state and the last K-1 conv inputs; a ``decode`` step
+        (S == 1) starts from them and updates both."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        din, n, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+        P = din // H
+        z = x @ self.wz
+        dt = F.softplus((x @ self.wdt).float() + self.dt_bias)
+        A = -torch.exp(self.A_log)
+        xbc = torch.cat([x @ self.wx, x @ self.wB, x @ self.wC], dim=-1)
+        step = decode and S == 1
+        tail = cache["conv"] if decode else None
+        xbc, new_tail = _causal_conv(xbc, self.conv_w, self.conv_b, tail)
+        xbc = _silu(xbc)
+        xin, Bp, Cp = torch.split(xbc, [din, n, n], dim=-1)
+        xh = xin.reshape(B, S, H, P)
+        if step:
+            state, y = ops.ssd_decode_step(cache["state"], xh[:, 0],
+                                           dt[:, 0], A, Bp[:, 0], Cp[:, 0])
+            y = y[:, None].to(x.dtype)
+        else:
+            init = cache["state"] if decode else None
+            y, state = ops.mamba2_ssd(
+                xh.contiguous(), dt.to(xh.dtype), A, Bp.contiguous(),
+                Cp.contiguous(), chunk=cfg.ssm_chunk, init_state=init,
+                impl=impl)
+        if cache is not None:
+            cache["state"].copy_(state)
+            cache["conv"].copy_(new_tail)
+        y = y + xh * self.D[None, None, :, None].to(x.dtype)
+        y = y.reshape(B, S, din)
+        g = (y * _silu(z)).float()
+        g = g * torch.rsqrt(g.square().mean(dim=-1, keepdim=True)
+                            + cfg.norm_eps) * self.gn
+        return g.to(x.dtype) @ self.out
+
+
+# ---------------------------------------------------------------------------
+# Zamba2-style shared attention block (one weight set reused across depth)
+# ---------------------------------------------------------------------------
+class SharedAttention(nn.Module):
+    """``concat(x, x0) @ win``, then pre-norm attention and a pre-norm
+    SwiGLU MLP, each with its residual; returns the block's output, which
+    the caller adds to x.  One instance serves every ``shared_attn`` entry
+    of the model (its k/v cache is per entry)."""
+
+    def __init__(self, cfg: ModelConfig, device=None) -> None:
+        super().__init__()
+        d = cfg.d_model
+        self.win = _param((2 * d, d), cfg.activation_dtype, device)
+        self.norm = Norm(cfg, device)
+        self.attn = Attention(cfg, device)
+        self.norm2 = Norm(cfg, device)
+        # the reference's shared block is SwiGLU whatever cfg.act says
+        self.mlp = MLPBlock(dataclasses.replace(cfg, act="swiglu"), device)
+
+    def forward(self, x: torch.Tensor, x0: torch.Tensor, *,
+                angles: torch.Tensor, cache: Cache = None,
+                cache_index: Optional[int] = None,
+                impl: Optional[str] = None) -> torch.Tensor:
+        h = torch.cat([x, x0], dim=-1) @ self.win
+        h = h + self.attn(self.norm(h), angles=angles, cache=cache,
+                          cache_index=cache_index, impl=impl)
+        return h + self.mlp(self.norm2(h))

@@ -1,6 +1,6 @@
 """Composable block-pattern language model — the port of
 ``repro/models/model.py`` for the block kinds ported so far (attention,
-sliding-window attention, MLP).
+sliding-window attention, MLP, Mamba2 and Zamba2's shared attention).
 
 A model is ``cfg.pattern`` (a repeating unit of layers, each a tuple of
 blocks) applied ``cfg.repeats`` times, pre-norm with residual connections.
@@ -8,17 +8,22 @@ The JAX package scans stacked parameters; here each repeat is one
 ``nn.Module`` in a ``ModuleList`` and the loop is a Python loop.  Block and
 norm names inside a unit are the reference's (``L{li}_{bi}_{kind}``,
 ``L{li}_{bi}_norm``), so :func:`params_from_reference` maps the JAX tree
-one to one.
+one to one.  A ``shared_attn`` entry has neither a norm nor weights of its
+own: the one :class:`~repro_torch.models.layers.SharedAttention` of the
+model (the reference's ``params["shared"]``) is handed to every unit,
+with the embedding output ``x0``.
 
 Three entry modes (:func:`apply`):
 
 * ``train``   — full sequence, logits for every position;
-* ``prefill`` — full sequence, k/v written into the cache, logits for the
-  last position only (what ``runtime/steps.py``'s prefill step returns);
+* ``prefill`` — full sequence, the cache filled, logits for the last
+  position only (what ``runtime/steps.py``'s prefill step returns);
 * ``decode``  — one token against the fixed-size cache at ``cache_index``.
 
-The KV cache (:func:`init_cache`) is the reference's layout: per attention
-block, k and v of shape (repeats, B, T, Hkv, dh).  Unlike the JAX package,
+The cache (:func:`init_cache`) is the reference's layout: per attention or
+shared-attention entry, k and v of shape (repeats, B, T, Hkv, dh); per
+Mamba2 block, the SSD ``state`` (repeats, B, H, P, n) fp32 and the
+``conv`` tail (repeats, B, K-1, d_inner + 2n).  Unlike the JAX package,
 which returns new arrays, prefill and decode write it in place.
 """
 
@@ -33,56 +38,76 @@ from torch import nn
 
 from ..core.mesh import resolve_device
 from . import layers as L
-from .config import ModelConfig, ATTN, SWA, MLP
+from .config import ModelConfig, ATTN, SWA, MLP, MAMBA2, SHARED_ATTN
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 MODES = ("train", "prefill", "decode")
 
 
 def _block_names(cfg: ModelConfig):
-    """(block name, norm name, kind) of every block of the unit, in order."""
-    return [(f"L{li}_{bi}_{kind}", f"L{li}_{bi}_norm", kind)
+    """(block name, norm name, kind) of every block of the unit, in order;
+    the norm name is None for a ``shared_attn`` entry, which has none."""
+    return [(f"L{li}_{bi}_{kind}",
+             None if kind == SHARED_ATTN else f"L{li}_{bi}_norm", kind)
             for li, layer in enumerate(cfg.pattern)
             for bi, kind in enumerate(layer)]
 
 
 class Unit(nn.Module):
-    """One repeat of ``cfg.pattern``: a norm and a block per entry."""
+    """One repeat of ``cfg.pattern``: a norm and a block per entry, except
+    the ``shared_attn`` entries, which run the model's shared block."""
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
         self.cfg = cfg
         self.blocks = nn.ModuleDict()
         for name, norm_name, kind in _block_names(cfg):
+            if kind == SHARED_ATTN:
+                continue
             self.blocks[norm_name] = L.Norm(cfg, device)
-            self.blocks[name] = (L.Attention(cfg, device)
-                                 if kind in (ATTN, SWA)
-                                 else L.MLPBlock(cfg, device))
+            if kind in (ATTN, SWA):
+                self.blocks[name] = L.Attention(cfg, device)
+            elif kind == MAMBA2:
+                self.blocks[name] = L.Mamba2(cfg, device)
+            else:
+                self.blocks[name] = L.MLPBlock(cfg, device)
 
-    def forward(self, x: torch.Tensor, *, angles: torch.Tensor, mode: str,
+    def forward(self, x: torch.Tensor, *, x0: torch.Tensor,
+                shared: Optional[L.SharedAttention], angles: torch.Tensor,
+                mode: str,
                 cache: Optional[Dict[str, Dict[str, torch.Tensor]]],
-                cache_index: Optional[int],
-                impl: Optional[str]) -> torch.Tensor:
+                cache_index: Optional[int], attn_impl: Optional[str],
+                ssd_impl: Optional[str]) -> torch.Tensor:
         cfg = self.cfg
+        decode = mode == "decode"
         for name, norm_name, kind in _block_names(cfg):
+            c = cache.get(name) if cache is not None else None
+            if kind == SHARED_ATTN:
+                x = x + shared(x, x0, angles=angles, cache=c,
+                               cache_index=cache_index if decode else None,
+                               impl=attn_impl)
+                continue
             xin = self.blocks[norm_name](x)
             if kind == MLP:
                 h = self.blocks[name](xin)
+            elif kind == MAMBA2:
+                h = self.blocks[name](xin, cache=c, decode=decode,
+                                      impl=ssd_impl)
             else:
                 win = cfg.sliding_window if kind == SWA else None
-                c = cache.get(name) if cache is not None else None
                 h = self.blocks[name](
                     xin, angles=angles, window=win, cache=c,
-                    cache_index=cache_index if mode == "decode" else None,
-                    impl=impl)
+                    cache_index=cache_index if decode else None,
+                    impl=attn_impl)
             x = x + h
         return x
 
 
 class Model(nn.Module):
-    """Embedding, ``cfg.repeats`` units, final norm and (untied or audio
-    frontend) an LM head ``(d_model, vocab)``.  Weights are allocated
-    uninitialised: use :func:`init` or :func:`params_from_reference`."""
+    """Embedding, ``cfg.repeats`` units, the shared attention block (where
+    the pattern has one), final norm and (untied or audio frontend) an LM
+    head ``(d_model, vocab)``.  Weights are allocated uninitialised: use
+    :func:`init` or :func:`params_from_reference`."""
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
@@ -94,6 +119,9 @@ class Model(nn.Module):
             self.embed = L._param((cfg.vocab, cfg.d_model), dt, device)
         self.units = nn.ModuleList(Unit(cfg, device)
                                    for _ in range(cfg.repeats))
+        self.shared = (L.SharedAttention(cfg, device)
+                       if any(SHARED_ATTN in layer for layer in cfg.pattern)
+                       else None)
         self.final_norm = L.Norm(cfg, device)
         if not cfg.tie_embeddings or cfg.frontend == "audio":
             self.lm_head = L._param((cfg.d_model, cfg.vocab), dt, device)
@@ -114,7 +142,8 @@ class Model(nn.Module):
     def forward(self, batch: Mapping[str, torch.Tensor], *,
                 mode: str = "train", cache: Optional[Cache] = None,
                 cache_index: Optional[int] = None,
-                attn_impl: Optional[str] = None
+                attn_impl: Optional[str] = None,
+                ssd_impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
         cfg = self.cfg
         if mode not in MODES:
@@ -137,14 +166,16 @@ class Model(nn.Module):
         else:
             positions = torch.arange(S, device=x.device).expand(B, S)
         angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        x0 = x
         if mode == "prefill" and cache is None:
             cache = init_cache(cfg, B, S, device=x.device)
         for r, unit in enumerate(self.units):
             unit_cache = None if mode == "train" else {
                 name: {n: t[r] for n, t in c.items()}
                 for name, c in cache.items()}
-            x = unit(x, angles=angles, mode=mode, cache=unit_cache,
-                     cache_index=cache_index, impl=attn_impl)
+            x = unit(x, x0=x0, shared=self.shared, angles=angles, mode=mode,
+                     cache=unit_cache, cache_index=cache_index,
+                     attn_impl=attn_impl, ssd_impl=ssd_impl)
         if mode == "prefill":
             x = x[:, -1:]
         return self._head(x), (None if mode == "train" else cache)
@@ -153,25 +184,43 @@ class Model(nn.Module):
 def apply(model: Model, batch: Mapping[str, torch.Tensor], *,
           mode: str = "train", cache: Optional[Cache] = None,
           cache_index: Optional[int] = None,
-          attn_impl: Optional[str] = None
+          attn_impl: Optional[str] = None, ssd_impl: Optional[str] = None
           ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Forward pass; returns ``(logits, cache)``.  ``attn_impl`` is handed
-    to ``ops.flash_attention`` (None or "cuda": the kernel on the card;
-    "ref": its plain version).  Prefill without a cache allocates one of
-    length S; with one, it fills positions [0, S) of it."""
+    to ``ops.flash_attention`` and ``ssd_impl`` to ``ops.mamba2_ssd``
+    (None or "cuda": the kernel on the card; "ref": its plain version).
+    Prefill without a cache allocates one of length S; with one, it fills
+    positions [0, S) of it and every Mamba2 block's state and conv tail."""
     return model(batch, mode=mode, cache=cache, cache_index=cache_index,
-                 attn_impl=attn_impl)
+                 attn_impl=attn_impl, ssd_impl=ssd_impl)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device=None) -> Cache:
-    """A zeroed fixed-size KV cache for every attention block: k and v of
-    shape (repeats, batch, cache_len, Hkv, dh) in ``cfg.dtype``."""
+    """A zeroed fixed-size cache, as the reference's ``init_cache``: k and v
+    of shape (repeats, batch, cache_len, Hkv, dh) in ``cfg.dtype`` for
+    every attention and shared-attention entry; for every Mamba2 block the
+    SSD ``state`` (repeats, batch, H, P, n) in fp32 and the ``conv`` tail
+    (repeats, batch, K-1, d_inner + 2n) in ``cfg.dtype``."""
     device = resolve_device(device)
-    shape = (cfg.repeats, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {name: {n: torch.zeros(shape, dtype=cfg.activation_dtype,
-                                  device=device) for n in ("k", "v")}
-            for name, _, kind in _block_names(cfg) if kind in (ATTN, SWA)}
+    dt, R = cfg.activation_dtype, cfg.repeats
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros((R, batch) + shape, dtype=dtype, device=device)
+
+    kv = (cache_len, cfg.n_kv_heads, cfg.head_dim)
+    H = cfg.n_ssm_heads
+    cache: Cache = {}
+    for name, _, kind in _block_names(cfg):
+        if kind in (ATTN, SWA, SHARED_ATTN):
+            cache[name] = {"k": zeros(kv), "v": zeros(kv)}
+        elif kind == MAMBA2:
+            cache[name] = {
+                "state": zeros((H, cfg.d_inner // H, cfg.ssm_state),
+                               torch.float32),
+                "conv": zeros((cfg.ssm_conv - 1,
+                               cfg.d_inner + 2 * cfg.ssm_state))}
+    return cache
 
 
 def _fill_normal(p: torch.Tensor, gen: torch.Generator, std: float) -> None:
@@ -182,26 +231,32 @@ def _fill_normal(p: torch.Tensor, gen: torch.Generator, std: float) -> None:
     p.copy_(z.mul_(std))
 
 
+# Leaves drawn as constants, and normal leaves whose scale is not
+# 1/sqrt(fan_in): the reference's norm_init, mamba2_init and init.
+_CONSTANT = {"scale": 1.0, "bias": 0.0, "dt_bias": 0.0, "A_log": 0.0,
+             "conv_b": 0.0, "D": 1.0, "gn": 1.0}
+_STD = {"embed": 0.02, "conv_w": 0.1}
+
+
 @torch.no_grad()
 def init(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     """A model with random weights from a ``torch.Generator`` seeded with
     ``seed``, drawn tensor by tensor straight into ``cfg.dtype``:
     embedding ``N(0, 0.02²)``, projections ``N(0, 1/fan_in)``, norms at
-    scale 1 and bias 0.  (The JAX package draws the same distributions from
-    ``jax.random``, so the numbers differ.)"""
+    scale 1 and bias 0; in a Mamba2 block ``dt_bias``, ``A_log`` and
+    ``conv_b`` 0, ``D`` and ``gn`` 1, ``conv_w`` ``N(0, 0.1²)``.  (The JAX
+    package draws the same distributions from ``jax.random``, so the
+    numbers differ.)"""
     model = Model(cfg, device)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "scale":
-            p.fill_(1.0)
-        elif leaf == "bias":
-            p.zero_()
-        elif leaf == "embed":
-            _fill_normal(p, gen, 0.02)
+        if leaf in _CONSTANT:
+            p.fill_(_CONSTANT[leaf])
         else:
-            _fill_normal(p, gen, 1.0 / math.sqrt(max(p.shape[0], 1)))
+            _fill_normal(p, gen, _STD.get(
+                leaf, 1.0 / math.sqrt(max(p.shape[0], 1))))
     return model
 
 
@@ -213,7 +268,9 @@ def params_from_reference(cfg: ModelConfig, np_params: Mapping[str, Any], *,
     ``np_params`` is the reference's tree (``repro.models.model.init``)
     with numpy leaves (bf16 leaves converted to float32 first: numpy has no
     bfloat16).  ``params["layers"]`` has a leading ``repeats`` axis, which
-    is unstacked into the units; each leaf is cast to the parameter's dtype.
+    is unstacked into the units (its ``shared_attn`` entries are empty and
+    skipped); ``params["shared"]`` has none and goes to the one shared
+    block.  Each leaf is cast to the parameter's dtype.
     """
     model = Model(cfg, device)
 
@@ -224,14 +281,25 @@ def params_from_reference(cfg: ModelConfig, np_params: Mapping[str, Any], *,
                              f"parameter of shape {tuple(p.shape)}")
         p.copy_(torch.tensor(arr).to(p.dtype))
 
+    def put_tree(module: nn.Module, tree: Mapping[str, Any]) -> None:
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                put_tree(getattr(module, k), v)
+            else:
+                put(getattr(module, k), v)
+
     if "embed" in np_params:
         put(model.embed, np_params["embed"])
+    if "shared" in np_params:
+        put_tree(model.shared, np_params["shared"])
     if "lm_head" in np_params:
         put(model.lm_head, np_params["lm_head"])
     for k, arr in np_params["final_norm"].items():
         put(getattr(model.final_norm, k), arr)
     for r, unit in enumerate(model.units):
         for block_name, leaves in np_params["layers"].items():
+            if not leaves:
+                continue            # a shared_attn entry: no weights
             block = unit.blocks[block_name]
             for k, arr in leaves.items():
                 put(getattr(block, k), np.asarray(arr)[r])

@@ -12,6 +12,16 @@
   values compared are the k/v cache entries (up to 4.6, where one ulp is
   2^-5 = 0.031), and RoPE's rotation can carry that absolute error onto a
   small entry; measured: 0.031 in the cache, 0.0078 in the logits.
+* The same for smoke zamba2-2.7b (Mamba2 blocks and the shared attention
+  block), prompt length 24 so that the SSD pads to its chunk of 16: fp32
+  within 1e-4 (measured 5.5e-6); bf16 within 0.2 absolute plus 2e-2
+  relative, looser than granite's bound because the gated RMSNorm of every
+  Mamba2 block rounds outputs near 10 to bf16 (an ulp is 0.0625 there), so
+  one-ulp flips from the frameworks' different rounding points reach the
+  output projection, and six blocks carry them on; measured: 0.113 in the
+  train logits, 0.0996 in the shared block's k/v, 0.0625 (one ulp) in the
+  conv tails, 0.019 in the SSD states, 0.078 in the decode logits.
+* ``init`` draws the Mamba2 leaves as the reference's ``mamba2_init``.
 * A config whose pattern holds an unported block kind raises.
 """
 
@@ -28,6 +38,7 @@ from repro.models import config as jax_config
 from repro.models import model as jax_model
 from repro_torch import configs
 from repro_torch.models import config, inputs, layers
+from repro_torch.models.config import MAMBA2, SLSTM
 from repro_torch.models import model as port_model
 
 B, S, DECODE_STEPS = 2, 12, 4
@@ -174,14 +185,27 @@ def test_init_is_seeded_and_scaled():
     assert torch.equal(a.final_norm.scale, torch.ones(cfg.d_model))
 
 
+def _with_pattern(arch, pattern):
+    """``arch``'s smoke and full configs with another block pattern."""
+    def get(getter):
+        return dataclasses.replace(getattr(configs, getter)(arch),
+                                   pattern=pattern)
+    return get
+
+
 @pytest.mark.parametrize("arch,kind", [
-    ("zamba2-2.7b", "mamba2"), ("xlstm-350m", "mlstm"),
-    ("olmoe-1b-7b", "moe"), ("mixtral-8x22b", "moe")])
+    (_with_pattern("zamba2-2.7b", ((MAMBA2,), (SLSTM,)) * 3), "slstm"),
+    ("xlstm-350m", "mlstm"), ("olmoe-1b-7b", "moe"),
+    ("mixtral-8x22b", "moe")])
 def test_unported_block_kind_raises(arch, kind):
+    """A config with an unported kind raises; zamba2 is ported, so its case
+    puts sLSTM blocks into zamba2's pattern."""
+    get = arch if callable(arch) else (
+        lambda getter: getattr(configs, getter)(arch))
     with pytest.raises(NotImplementedError, match=repr(kind)):
-        port_model.Model(configs.smoke(arch), device="cpu")
+        port_model.Model(get("smoke"), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        layers.check_supported(configs.get(arch))
+        layers.check_supported(get("get"))
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-15b", "hubert-xlarge"])
@@ -205,3 +229,143 @@ def test_layernorm_gelu_archs_match(arch):
     with torch.no_grad():
         got, _ = port_model.apply(model, pb, mode="train")
     np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# zamba2-2.7b: Mamba2 blocks and the shared attention block
+# ---------------------------------------------------------------------------
+ZS = 24          # a prompt that is not a multiple of the SSD chunk (16)
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def zamba(request):
+    """(dtype, jax cfg, jax params, port cfg, port model) for smoke
+    zamba2-2.7b, the port holding the reference's weights."""
+    dtype = request.param
+    jcfg = dataclasses.replace(jax_configs.smoke("zamba2-2.7b"), dtype=dtype)
+    pcfg = dataclasses.replace(configs.smoke("zamba2-2.7b"), dtype=dtype)
+    params = jax_model.init(jcfg, jax.random.PRNGKey(5))
+    model = port_model.params_from_reference(pcfg, _to_numpy(params),
+                                             device="cpu")
+    return dtype, jcfg, params, pcfg, model
+
+
+def _ztol(dtype):
+    return dict(atol=1e-4, rtol=1e-4) if dtype == "float32" \
+        else dict(atol=0.2, rtol=2e-2)
+
+
+def _port_leaf(model, path):
+    """The port's parameter at a reference tree path."""
+    keys = [p.key for p in path]
+    if keys[0] == "layers":
+        return getattr(model.units[0].blocks[keys[1]], keys[2])
+    node = model
+    for k in keys:
+        node = getattr(node, k)
+    return node
+
+
+def test_zamba2_params_from_reference_holds_every_leaf(zamba):
+    """Every leaf of the reference's tree, the shared block held once and
+    ``params["shared"]`` mapped onto it, the empty shared_attn entries of
+    ``params["layers"]`` skipped; equal parameter counts."""
+    dtype, jcfg, params, pcfg, model = zamba
+    leaves = jax.tree_util.tree_flatten_with_path(params)[0]
+    assert port_model.param_count(model) == sum(int(x.size)
+                                                for _, x in leaves)
+    assert params["layers"]["L5_1_shared_attn"] == {}
+    assert "L5_1_shared_attn" not in model.units[0].blocks
+    assert "L5_1_norm" not in model.units[0].blocks
+    for path, leaf in leaves:
+        want = _f32(leaf)
+        if path[0].key == "layers":
+            want = want[0]              # smoke zamba2 has one repeat
+        got = _port_leaf(model, path)
+        assert got.dtype == (torch.float32 if leaf.dtype == jnp.float32
+                             else getattr(torch, dtype))
+        np.testing.assert_array_equal(_f32(got), want)
+
+
+def test_zamba2_train_logits_match(zamba):
+    dtype, jcfg, params, pcfg, model = zamba
+    toks = np.random.default_rng(6).integers(0, jcfg.vocab, (B, ZS))
+    want, _, _ = jax_model.apply(params, jcfg,
+                                 {"tokens": jnp.asarray(toks, jnp.int32)},
+                                 mode="train")
+    with torch.no_grad():
+        got, _ = port_model.apply(model, {"tokens": torch.from_numpy(toks)},
+                                  mode="train")
+    assert got.shape == (B, ZS, jcfg.vocab)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_ztol(dtype))
+
+
+def test_zamba2_prefill_and_decode_match(zamba):
+    """Prefill into a fixed-size cache (last-position logits; every Mamba2
+    block's SSD state and conv tail, the shared block's k/v), then four
+    teacher-forced decode steps, each updating the cache in place, against
+    the reference's prefill + ``pad_cache`` + decode."""
+    dtype, jcfg, params, pcfg, model = zamba
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, jcfg.vocab, (B, ZS))
+    forced = rng.integers(0, jcfg.vocab, (DECODE_STEPS, B))
+    total = ZS + DECODE_STEPS
+    want, jcache, _ = jax_model.apply(
+        params, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)},
+        mode="prefill")
+    jcache = jax_model.pad_cache(jcfg, jcache, total)
+    cache = port_model.init_cache(pcfg, B, total, device="cpu")
+    with torch.no_grad():
+        got, cache2 = port_model.apply(model,
+                                       {"tokens": torch.from_numpy(toks)},
+                                       mode="prefill", cache=cache)
+    assert cache2 is cache
+    np.testing.assert_allclose(_f32(got), _f32(want[:, -1:]), **_ztol(dtype))
+    assert sorted(cache) == sorted(jcache)
+    for name, entry in jcache.items():
+        assert sorted(cache[name]) == sorted(entry)
+        for n, v in entry.items():
+            assert tuple(cache[name][n].shape) == v.shape
+            assert cache[name][n].dtype == (
+                torch.float32 if n == "state" else getattr(torch, dtype))
+            np.testing.assert_allclose(_f32(cache[name][n]), _f32(v),
+                                       **_ztol(dtype))
+    decode = jax.jit(lambda p, c, b, i: jax_model.apply(
+        p, jcfg, b, mode="decode", cache=c, cache_index=i)[:2])
+    for i in range(DECODE_STEPS):
+        step = {"tokens": jnp.asarray(forced[i][:, None], jnp.int32)}
+        want, jcache = decode(params, jcache, step, jnp.int32(ZS + i))
+        with torch.no_grad():
+            got, cache = port_model.apply(
+                model, {"tokens": torch.from_numpy(forced[i][:, None])},
+                mode="decode", cache=cache, cache_index=ZS + i)
+        np.testing.assert_allclose(_f32(got), _f32(want), **_ztol(dtype))
+    for name in ("L0_0_mamba2", "L5_0_mamba2"):
+        np.testing.assert_allclose(_f32(cache[name]["state"]),
+                                   _f32(jcache[name]["state"]),
+                                   **_ztol(dtype))
+
+
+def test_zamba2_init_draws_mamba2_leaves():
+    """``dt_bias``, ``A_log`` and ``conv_b`` 0; ``D`` and ``gn`` 1;
+    ``conv_w`` N(0, 0.1²); projections N(0, 1/fan_in); one shared block."""
+    cfg = dataclasses.replace(configs.smoke("zamba2-2.7b"), d_model=256)
+    model = port_model.init(cfg, seed=0, device="cpu")
+    blk = model.units[0].blocks["L2_0_mamba2"]
+    for leaf, value in (("dt_bias", 0.0), ("A_log", 0.0), ("conv_b", 0.0),
+                        ("D", 1.0), ("gn", 1.0)):
+        t = getattr(blk, leaf)
+        assert t.dtype == torch.float32
+        assert torch.equal(t, torch.full_like(t, value)), leaf
+    assert blk.conv_w.dtype == torch.bfloat16
+    conv_w = blk.conv_w.float()
+    assert abs(conv_w.mean().item()) < 0.01
+    assert abs(conv_w.std().item() - 0.1) < 0.01
+    for leaf in ("wz", "wx", "wB", "wdt", "out"):
+        w = getattr(blk, leaf).float()
+        want = w.shape[0] ** -0.5
+        assert abs(w.std().item() - want) < 0.05 * want, leaf
+    win = model.shared.win.float()
+    assert abs(win.std().item() - (2 * 256) ** -0.5) < 0.05 * 512 ** -0.5
+    assert sum(1 for m in model.modules()
+               if isinstance(m, layers.SharedAttention)) == 1

@@ -12,7 +12,8 @@
    the queue head, the world shrinks, every request still finishes with
    its full stream.
 5. **The real model** — the port's ``LMAdapter`` (smoke granite-3-2b,
-   fp32, on the CPU) under the port's engine gives the same greedy
+   and smoke zamba2-2.7b with a 24-token prompt so that the SSD pads to its
+   chunk, fp32, on the CPU) under the port's engine gives the same greedy
    streams as the JAX ``LMAdapter`` under the JAX engine on the
    reference's weights and prompt tokens, on both legs.
 
@@ -282,19 +283,17 @@ def test_failed_step_does_not_finish_request():
 PROMPT, GEN, N_REQ = 16, 8, 3
 
 
-@pytest.fixture(scope="module")
-def lm_pair():
-    """Smoke granite-3-2b in fp32: the JAX params and the port's model
-    holding them, and the reference's prompt tokens per seed."""
-    jcfg = dataclasses.replace(jax_configs.smoke("granite-3-2b"),
-                               dtype="float32")
-    pcfg = dataclasses.replace(configs.smoke("granite-3-2b"), dtype="float32")
+def _reference_pair(arch, prompt_len):
+    """Smoke ``arch`` in fp32: the JAX params and the port's model holding
+    them, and the reference's prompt tokens per seed."""
+    jcfg = dataclasses.replace(jax_configs.smoke(arch), dtype="float32")
+    pcfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
     params = jax_model.init(jcfg, jax.random.PRNGKey(0))
     model = port_model.params_from_reference(
         pcfg, jax.tree_util.tree_map(np.asarray, params), device="cpu")
 
     def prompt_tokens(req):
-        toks = jax_inputs.make_batch(jcfg, batch=1, seq=PROMPT,
+        toks = jax_inputs.make_batch(jcfg, batch=1, seq=prompt_len,
                                      kind="prefill",
                                      key=jax.random.PRNGKey(int(req.prompt)))
         return torch.tensor(np.asarray(toks["tokens"])).long()
@@ -302,13 +301,11 @@ def lm_pair():
     return jcfg, params, pcfg, model, prompt_tokens
 
 
-@pytest.fixture(scope="module")
-def jax_streams(lm_pair):
+def _reference_streams(jcfg, params, prompt_len):
     """The JAX package's serving path as ``launch/serve.py`` builds it."""
-    jcfg, params, _, _, _ = lm_pair
     mesh = jax_meshlib.local_mesh(model=1)
     policy = ShardingPolicy(fsdp=False, tp=False, sp=False, remat=None)
-    adapter = JaxLMAdapter(jcfg, mesh, policy, params, prompt_len=PROMPT,
+    adapter = JaxLMAdapter(jcfg, mesh, policy, params, prompt_len=prompt_len,
                            gen_len=GEN)
     adapter.warmup()
     rep = JaxEngine(adapter, slots=2, completion="event",
@@ -316,6 +313,17 @@ def jax_streams(lm_pair):
         [JaxRequest(rid=i, prompt=100 + i, gen_len=GEN)
          for i in range(N_REQ)])
     return rep.outputs
+
+
+@pytest.fixture(scope="module")
+def lm_pair():
+    return _reference_pair("granite-3-2b", PROMPT)
+
+
+@pytest.fixture(scope="module")
+def jax_streams(lm_pair):
+    jcfg, params, _, _, _ = lm_pair
+    return _reference_streams(jcfg, params, PROMPT)
 
 
 @pytest.mark.parametrize("completion", ["event", "blocking"])
@@ -330,6 +338,31 @@ def test_lm_adapter_streams_equal_jax(lm_pair, jax_streams, completion):
                    for i in range(N_REQ)])
     assert rep.tokens == N_REQ * GEN
     assert rep.outputs == jax_streams
+
+
+ZAMBA_PROMPT = 24      # not a multiple of smoke zamba2's SSD chunk (16)
+
+
+@pytest.fixture(scope="module")
+def zamba_pair():
+    pair = _reference_pair("zamba2-2.7b", ZAMBA_PROMPT)
+    return pair, _reference_streams(pair[0], pair[1], ZAMBA_PROMPT)
+
+
+@pytest.mark.parametrize("completion", ["event", "blocking"])
+def test_lm_adapter_zamba2_streams_equal_jax(zamba_pair, completion):
+    """Smoke zamba2-2.7b: each request's cache carries the Mamba2 states
+    and conv tails beside the shared block's k/v, and the greedy streams
+    equal the JAX ``LMAdapter``'s."""
+    (_, _, pcfg, model, prompt_tokens), want = zamba_pair
+    adapter = LMAdapter(pcfg, model, prompt_len=ZAMBA_PROMPT, gen_len=GEN,
+                        device="cpu", prompt_tokens=prompt_tokens)
+    adapter.warmup()
+    rep = ServingEngine(adapter, slots=2, completion=completion,
+                        num_workers=2).run(
+        [Request(rid=i, prompt=100 + i, gen_len=GEN) for i in range(N_REQ)])
+    assert rep.tokens == N_REQ * GEN
+    assert rep.outputs == want
 
 
 def test_lm_adapter_default_prompts_legs_equal(lm_pair):
@@ -419,3 +452,25 @@ def test_serve_cli_defaults_on_card(capsys):
     cfg = configs.smoke("granite-3-2b")
     # the warm-up request and the 4 served ones
     assert fa.flash_attention.launches - before == 5 * cfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("completion", ["event", "blocking"])
+def test_serve_cli_zamba2_smoke_on_card(capsys, completion):
+    """The serving CLI serves smoke zamba2-2.7b on the card (head dim 16,
+    P = 64, n = 16, chunk 16, a prompt of 24 that pads to the chunk):
+    every Mamba2 prefill through ``mamba2_ssd`` and every shared-attention
+    prefill through ``flash_attention``, none in decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.launch import serve
+    before = (ssd.mamba2_ssd.launches, fa.flash_attention.launches)
+    assert serve.main(["--arch", "zamba2-2.7b", "--prompt-len", "24",
+                       "--gen", "8", "--completion", completion]) == 0
+    assert "device=cuda" in capsys.readouterr().out
+    # the warm-up request and the 4 served ones; 6 Mamba2 blocks and one
+    # shared-attention call per prefill
+    assert ssd.mamba2_ssd.launches - before[0] == 5 * 6
+    assert fa.flash_attention.launches - before[1] == 5 * 1
