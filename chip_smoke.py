@@ -91,11 +91,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``SERVE_LOGIT_RTOL``.
 15. Timing of ``mamba2_ssd`` at zamba2's prefill shape, as in phase 5 (no
     PyTorch call computes the scan: ``library_ms`` is null).
+16. ``mlstm_chunk`` against its plain version on the card: the JAX
+    package's kernel-test shapes, smoke xlstm-350m's prefill at the
+    serving CLI's default prompt of 32, d = 512 at chunk 256 and a chunk of
+    12, in fp32 and bf16 — y within 2e-5 (fp32) and 2e-2 (bf16), C and n
+    within 2e-4 (fp32) and 2e-2 (bf16) absolute with 2e-2 relative, m
+    within 1e-3, two calls bitwise equal; s = 24 through
+    ``ops.mlstm_chunked`` (padding); xlstm-350m's prefill shape (1, 2048,
+    4, 512), chunk 256, in fp32 and bf16, each error stated as max|diff| /
+    max|plain|.
+17. The xlstm serving path: xlstm-350m at full width and depth
+    (491,908,240 parameters: 18 mLSTM and 6 sLSTM blocks), as phase 11 —
+    identical streams on both legs, ``mlstm_chunk`` launched exactly
+    18 x 4 times per leg (prefill only).  The bf16 model turns a one-ulp
+    difference anywhere into O(1) differences in the logits, so the plain
+    version (``mlstm_impl="ref"``) is held block by block in bf16 (each
+    mLSTM block alone on the plain path's input to it, within 2e-2), and
+    as a whole on an fp32 copy of the same weights, with phase 11's gates
+    (prefill logits within ``SERVE_LOGIT_RTOL``, first token); the bf16
+    whole-model difference is reported beside a one-ulp baseline.
+18. Timing of ``mlstm_chunk`` at xlstm's prefill shape, as in phase 5 (no
+    PyTorch call computes the chunked mLSTM: ``library_ms`` is null).
 
 Prints the per-version wall time, the wall time of each ``sync_grads``
 run, tokens/s and p50/p99 token latency per serving leg of each model,
-the ``kernels`` JSON line (six kernels), the card's name and power limit,
-and last ``{"ok": true,
+the ``kernels`` JSON line (seven kernels), the card's name and power
+limit, and last ``{"ok": true,
 "device": {...}}``.  It imports nothing of the JAX package.
 """
 
@@ -731,8 +752,8 @@ GRANITE_PREFILL = (1, 2048, 2048, 32, 8, 64, True, None)
 ZAMBA_PREFILL = (1, 2048, 2048, 32, 32, 80, True, None)
 # tests/test_kernels.py's tolerances (atol = rtol), compared in fp32
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# Phases 11 and 14: granite-3-2b and zamba2-2.7b at full width and depth,
-# served on one card.
+# Phases 11, 14 and 17: granite-3-2b, zamba2-2.7b and xlstm-350m at full width
+# and depth, served on one card.
 GRANITE_PARAMS = 2_533_531_648
 ZAMBA_PARAMS = 2_435_777_440
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS = 4, 2048, 32, 4
@@ -744,7 +765,9 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS = 4, 2048, 32, 4
 # matmuls and residual adds carry those flips to the logits.  So: the bf16
 # tolerance of the kernel test (2e-2), widened 2.5x for the depth, as the
 # CPU model test widens it for two layers (5e-2).  zamba2's 54 SSD scans
-# round y to bf16 the same way and are held to the same gate.
+# round y to bf16 the same way and are held to the same gate.  xlstm-350m
+# with random weights amplifies such flips to O(1) (compare_chaotic), so
+# its whole-model gate runs on an fp32 copy of its weights.
 SERVE_LOGIT_RTOL = 5e-2
 BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 
@@ -793,8 +816,9 @@ def check_flash_attention(fa, ref, device) -> float:
 
 
 def serving_main_path(arch: str, n_params: int, width: tuple,
-                      kernels: dict, plain: dict, device) -> dict:
-    """Phases 11 and 14: ``arch`` at full width and depth (``width`` is
+                      kernels: dict, plain: dict, device,
+                      compare_dtype=None) -> dict:
+    """Phases 11, 14 and 17: ``arch`` at full width and depth (``width`` is
     its (n_layers, d_model, n_heads, n_kv_heads)) served through the
     port's engine on both completion legs.  ``kernels`` maps each kernel's
     name to (its wrapper, launches per request): every leg launches each
@@ -881,42 +905,151 @@ def serving_main_path(arch: str, n_params: int, width: tuple,
     log(f"serve {arch}: both legs emitted identical streams; request 0: "
         f"{streams['event'][0]}")
 
-    # the plain versions on the same weights and prompt
-    prompt = adapter.prompt_tokens(Request(rid=0, prompt=1000, gen_len=1))
+    if compare_dtype is None:
+        out.update(compare_with_plain(arch, cfg, model, kernels, plain,
+                                      device, streams["event"][0]))
+    else:
+        out.update(compare_chaotic(arch, cfg, model, kernels, plain, device,
+                                   compare_dtype))
+    return out
+
+
+def _request0_prompt(cfg, model, device):
+    from repro_torch.serving import Request
+    from repro_torch.serving.lm import LMAdapter
+    ad = LMAdapter(cfg, model, prompt_len=SERVE_PROMPT, gen_len=SERVE_GEN,
+                   device=device)
+    return {"tokens": ad.prompt_tokens(Request(rid=0, prompt=1000,
+                                               gen_len=1)).to(device)}
+
+
+def _prefill_logits(model, toks, **impls):
+    import torch
+    from repro_torch.models import model as port_model
     with torch.inference_mode():
-        toks = {"tokens": prompt.to(device)}
-        lk, _ = port_model.apply(model, toks, mode="prefill")
-        lr, _ = port_model.apply(model, toks, mode="prefill", **plain)
-    lk, lr = lk[0, -1].float(), lr[0, -1].float()
+        logits, _ = port_model.apply(model, toks, mode="prefill", **impls)
+    return logits[0, -1].float()
+
+
+def _serve_request0(cfg, model, device, **impls):
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.lm import LMAdapter
+    ad = LMAdapter(cfg, model, prompt_len=SERVE_PROMPT, gen_len=SERVE_GEN,
+                   device=device, **impls)
+    return ServingEngine(ad, slots=1, completion="blocking",
+                         num_workers=1).run(
+        [Request(rid=0, prompt=1000, gen_len=SERVE_GEN)]).outputs[0]
+
+
+def compare_with_plain(arch, cfg, model, kernels, plain, device,
+                       stream) -> dict:
+    """Request 0 on the plain versions (``plain``, the ``*_impl``
+    arguments) against the kernel path on ``model``: prefill logits within
+    ``SERVE_LOGIT_RTOL`` of the largest logit; served on the plain
+    versions it launches no kernel, and its first token equals the kernel
+    path's ``stream`` where the top-1/top-2 margin exceeds that
+    tolerance."""
+    import torch
+    toks = _request0_prompt(cfg, model, device)
+    lk = _prefill_logits(model, toks)
+    lr = _prefill_logits(model, toks, **plain)
     scale = float(lr.abs().max())
     diff = float((lk - lr).abs().max())
-    out["logit_rel_diff"] = diff / scale
     if not diff <= SERVE_LOGIT_RTOL * scale:
         raise AssertionError(f"{arch} prefill logits: kernels vs plain "
                              f"versions max |diff| {diff} > "
                              f"{SERVE_LOGIT_RTOL} x {scale}")
     top2 = torch.topk(lr, 2).values
     margin = float(top2[0] - top2[1])
-    plain_ad = LMAdapter(cfg, model, prompt_len=SERVE_PROMPT,
-                         gen_len=SERVE_GEN, device=device, **plain)
     before = {k: fn.launches for k, (fn, _) in kernels.items()}
-    ref_stream = ServingEngine(plain_ad, slots=1, completion="blocking",
-                               num_workers=1).run(
-        [Request(rid=0, prompt=1000, gen_len=SERVE_GEN)]).outputs[0]
+    ref_stream = _serve_request0(cfg, model, device, **plain)
     if {k: fn.launches for k, (fn, _) in kernels.items()} != before:
         raise AssertionError(f"{arch}: {plain} launched a kernel")
-    if margin > SERVE_LOGIT_RTOL * scale and \
-            ref_stream[0] != streams["event"][0][0]:
-        raise AssertionError(f"{arch}: first token {streams['event'][0][0]} "
-                             f"differs from the plain path's {ref_stream[0]} "
-                             f"with a top-1/top-2 margin of {margin}")
-    agree = sum(a == b for a, b in zip(ref_stream, streams["event"][0]))
-    out["plain_tokens_agree"] = agree
-    log(f"{arch}, plain versions ({plain}), request 0: prefill logits max "
-        f"|kernel - plain| {diff:.4g} = {diff / scale:.4g} of max |logit| "
-        f"{scale:.4g} (rtol {SERVE_LOGIT_RTOL}); top-1/top-2 margin "
-        f"{margin:.4g}; {agree} of {SERVE_GEN} tokens agree with the "
-        f"kernel path's stream")
+    if margin > SERVE_LOGIT_RTOL * scale and ref_stream[0] != stream[0]:
+        raise AssertionError(f"{arch}: first token {stream[0]} differs from "
+                             f"the plain path's {ref_stream[0]} with a "
+                             f"top-1/top-2 margin of {margin}")
+    agree = sum(a == b for a, b in zip(ref_stream, stream))
+    log(f"{arch} ({cfg.dtype}), plain versions ({plain}), request 0: "
+        f"prefill logits max |kernel - plain| {diff:.4g} = "
+        f"{diff / scale:.4g} of max |logit| {scale:.4g} (rtol "
+        f"{SERVE_LOGIT_RTOL}); top-1/top-2 margin {margin:.4g}; {agree} of "
+        f"{SERVE_GEN} tokens agree with the kernel path's stream")
+    return {"logit_rel_diff": diff / scale, "plain_tokens_agree": agree}
+
+
+def compare_chaotic(arch, cfg, model, kernels, plain, device,
+                    dtype: str) -> dict:
+    """The plain-version check of a model whose bf16 forward amplifies a
+    one-ulp difference to O(1) in the logits (xlstm-350m with random
+    weights: a single input element of its first block moved by one bf16
+    ulp moves the plain path's prefill logits by ~18 % of the largest
+    one).  So, on the served bf16 model: the kernel-vs-plain logit
+    difference and that one-ulp baseline are reported, and every block
+    that runs the kernel is held alone, on the plain path's input to it,
+    within the kernel test's bf16 tolerance (2e-2 of its largest output).
+    Then the same weights in ``dtype`` get :func:`compare_with_plain`'s
+    whole-model gates, with request 0's kernel-path stream served on
+    that copy."""
+    import dataclasses
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as port_model
+    toks = _request0_prompt(cfg, model, device)
+    lr = _prefill_logits(model, toks, **plain)
+    scale = float(lr.abs().max())
+    rel = float((_prefill_logits(model, toks) - lr).abs().max()) / scale
+    first = model.units[0].blocks["L0_0_mlstm"]
+
+    def nudge(mod, args):           # one element one bf16 ulp further out
+        x = args[0].clone()
+        x.view(torch.int16).view(-1)[100 * cfg.d_model + 5] += 1
+        return (x,) + args[1:]
+
+    hook = first.register_forward_pre_hook(nudge)
+    base = float((_prefill_logits(model, toks, **plain) - lr).abs().max())
+    hook.remove()
+    inputs, hooks = [], []
+    for unit in model.units:
+        for blk in unit.blocks.values():
+            if isinstance(blk, L.MLSTM):
+                hooks.append(blk.register_forward_pre_hook(
+                    lambda mod, args: inputs.append((mod, args[0].clone()))))
+    _prefill_logits(model, toks, **plain)
+    for h in hooks:
+        h.remove()
+    worst, n_blocks = 0.0, len(inputs)
+    with torch.inference_mode():
+        for blk, x in inputs:
+            want = blk(x, impl="ref")
+            err = float((blk(x) - want).abs().max() / want.abs().max())
+            worst = max(worst, err)
+    del inputs
+    if not worst <= MLSTM_TOL["bfloat16"]:
+        raise AssertionError(f"{arch}: an mLSTM block alone on the plain "
+                             f"path's input differs from its plain version "
+                             f"by {worst:.4g} of its largest output")
+    log(f"{arch} (bfloat16), request 0's prefill: logits max |kernel - "
+        f"plain| = {rel:.4g} of max |logit| {scale:.4g}, against "
+        f"{base / scale:.4g} for the plain path with one input element of "
+        f"the first block moved one bf16 ulp (not gated: the bf16 model "
+        f"amplifies one-ulp differences); each of the {n_blocks} mLSTM blocks "
+        f"alone on the plain path's input: kernel within {worst:.4g} of its "
+        f"plain version's largest output (tolerance "
+        f"{MLSTM_TOL['bfloat16']})")
+    wide_cfg = dataclasses.replace(cfg, dtype=dtype)
+    wide = port_model.Model(wide_cfg, device)
+    weights = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, p in wide.named_parameters():
+            p.copy_(weights[name])
+    stream = _serve_request0(wide_cfg, wide, device)
+    out = compare_with_plain(arch, wide_cfg, wide, kernels, plain, device,
+                             stream)
+    out.update({"bf16_logit_rel_diff": rel,
+                "bf16_one_ulp_rel_diff": base / scale,
+                "block_alone_rel_err": worst})
+    del wide
     return out
 
 
@@ -1122,6 +1255,155 @@ def time_mamba2_ssd(ssd, ref, device) -> dict:
     return t
 
 
+# Phase 16 shapes (b, s, h, d, chunk): the JAX package's kernel tests
+# (tests/test_kernels.py), smoke xlstm-350m's prefill at the serving CLI's
+# default prompt of 32 (head dim 128 / 4 = 32, chunk 16), the widest d at
+# the longest chunk, and a chunk of 12; then xlstm-350m's prefill.
+MLSTM_CASES = (
+    (2, 64, 2, 16, 16),
+    (1, 128, 4, 32, 64),
+    (1, 32, 4, 32, 16),
+    (1, 512, 2, 512, 256),
+    (1, 12, 2, 64, 12),
+)
+XLSTM_MLSTM = (1, 2048, 4, 512, 256)
+# tests/test_kernels.py's bounds: y (atol = rtol), C and n (atol; rtol
+# 2e-2), m; at xlstm's shape each as max|diff| / max|plain|.
+MLSTM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MLSTM_STATE_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+MLSTM_M_TOL = 1e-3
+XLSTM_PARAMS = 491_908_240
+
+
+def _mlstm_inputs(case, dtype, device, seed):
+    """q, k ~ N(0, 0.25), v ~ N(0, 1) in ``dtype``; fp32 gate logits
+    i ~ N(0, 1), f ~ N(2, 1) (tests/test_kernels.py's)."""
+    import torch
+    b, s, h, d = case[:4]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    return ((normal(b, s, h, d) * 0.5).to(dtype),
+            (normal(b, s, h, d) * 0.5).to(dtype), normal(b, s, h, d).to(dtype),
+            normal(b, s, h), normal(b, s, h) + 2.0)
+
+
+def check_mlstm_chunk(mk, ref, device) -> float:
+    """Phase 16: the kernel against its plain version on the card at every
+    shape, in fp32 and bf16, and bitwise repeatable; s = 24 through
+    ``ops.mlstm_chunked`` (padding to the chunk of 16); xlstm's prefill
+    shape.  Returns the largest |kernel - plain| of y at xlstm's shape
+    (bf16)."""
+    import torch
+    from repro_torch.kernels import ops
+    worst = 0.0
+    cases = [(c, dt) for dt in ("float32", "bfloat16") for c in MLSTM_CASES]
+    cases += [(XLSTM_MLSTM, "float32"), (XLSTM_MLSTM, "bfloat16")]
+    for case, dt in cases:
+        b, s, h, d, chunk = case
+        args = _mlstm_inputs(case, getattr(torch, dt), device, seed=sum(case))
+        y, st = mk.mlstm_chunk(*args, chunk=chunk)
+        y2, st2 = mk.mlstm_chunk(*args, chunk=chunk)
+        yp, sp = ref.mlstm_chunked(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        tag = f"mlstm_chunk {dt} {case}"
+        shapes = ((b, h, d, d), (b, h, d), (b, h))
+        if y.dtype != args[0].dtype or y.shape != args[0].shape or any(
+                t.dtype != torch.float32 or t.shape != shp
+                for t, shp in zip(st, shapes)):
+            raise AssertionError(f"{tag}: results {y.dtype} "
+                                 f"{tuple(y.shape)}, "
+                                 f"{[tuple(t.shape) for t in st]}")
+        if not (torch.equal(y, y2) and
+                all(torch.equal(a, c) for a, c in zip(st, st2))):
+            raise AssertionError(f"{tag}: two calls differ")
+        tol, stol = MLSTM_TOL[dt], MLSTM_STATE_TOL[dt]
+        ey = _max_abs_diff(y, yp)
+        eC, en, em = (_max_abs_diff(a, c) for a, c in zip(st, sp))
+        if case == XLSTM_MLSTM:
+            rel = [e / float(t.float().abs().max())
+                   for e, t in ((ey, yp), (eC, sp[0]), (en, sp[1]),
+                                (em, sp[2]))]
+            if not (rel[0] <= tol and rel[1] <= stol and rel[2] <= stol
+                    and rel[3] <= MLSTM_M_TOL):
+                raise AssertionError(
+                    f"{tag}: max|diff| / max|plain| {rel[0]:.3g} (y, "
+                    f"tolerance {tol}), {rel[1]:.3g} (C), {rel[2]:.3g} (n; "
+                    f"{stol}), {rel[3]:.3g} (m, {MLSTM_M_TOL})")
+            if dt == "bfloat16":
+                worst = ey
+            log(f"{tag}: max|diff| / max|plain| y {ey:.3g} = {rel[0]:.3g} "
+                f"(tolerance {tol}), C {eC:.3g} = {rel[1]:.3g}, n {en:.3g} "
+                f"= {rel[2]:.3g} ({stol}), m {em:.3g} = {rel[3]:.3g} "
+                f"({MLSTM_M_TOL}), two calls bitwise equal")
+            continue
+        ok = (torch.allclose(y.float(), yp.float(), atol=tol, rtol=tol)
+              and torch.allclose(st[0], sp[0], atol=stol, rtol=2e-2)
+              and torch.allclose(st[1], sp[1], atol=stol, rtol=2e-2)
+              and torch.allclose(st[2], sp[2], atol=MLSTM_M_TOL,
+                                 rtol=MLSTM_M_TOL))
+        if not ok:
+            raise AssertionError(f"{tag}: max |kernel - plain| {ey} (y, atol "
+                                 f"= rtol = {tol}), C {eC}, n {en} ({stol}), "
+                                 f"m {em}")
+        log(f"{tag}: max |kernel - plain| y {ey:.3g} (atol = rtol = {tol}), "
+            f"C {eC:.3g}, n {en:.3g} ({stol}), m {em:.3g}, two calls bitwise "
+            f"equal")
+    args = _mlstm_inputs((2, 24, 4, 32), torch.float32, device, seed=24)
+    before = mk.mlstm_chunk.launches
+    y, st = ops.mlstm_chunked(*args, chunk=16)
+    yp, sp = ops.mlstm_chunked(*args, chunk=16, impl="ref")
+    torch.cuda.synchronize()
+    if mk.mlstm_chunk.launches != before + 1 or y.shape != yp.shape:
+        raise AssertionError(f"ops.mlstm_chunked s=24: no kernel launch or "
+                             f"shape {tuple(y.shape)}")
+    if not (torch.allclose(y, yp, atol=2e-5, rtol=2e-5) and
+            all(torch.allclose(a, c, atol=2e-4, rtol=2e-2)
+                for a, c in zip(st, sp))):
+        raise AssertionError("ops.mlstm_chunked s=24 chunk 16: kernel and "
+                             "plain differ")
+    log(f"ops.mlstm_chunked s=24 chunk 16 (padded to 32): kernel within 2e-5 "
+        f"of plain, y {tuple(y.shape)}")
+    return worst
+
+
+def time_mlstm_chunk(mk, ref, device) -> dict:
+    """Phase 18: times per call at xlstm's prefill shape, bf16 (a ring of
+    four input sets, 101 MB, larger than the 50 MB L2), as in phase 5.  No
+    single PyTorch call computes the chunked mLSTM: ``library_ms`` is None.
+    The bound counts each input read once and each output written once
+    (q, k, v, the two gates, y and the final C, n, m) and the work of the
+    lower triangles: per (head, chunk) q k^T and S v over l(l+1)/2
+    entries, q C and the k^T v update, 2 FLOP per multiply-add."""
+    import torch
+    b, s, h, d, chunk = XLSTM_MLSTM
+    ring = [_mlstm_inputs(XLSTM_MLSTM, torch.bfloat16, device, seed=70 + i)
+            for i in range(4)]
+    t = {"ms": graph_ms(lambda i: mk.mlstm_chunk(*ring[i % 4], chunk=chunk),
+                        8),
+         "plain_ms": graph_ms(lambda i: ref.mlstm_chunked(*ring[i % 4],
+                                                          chunk=chunk), 4),
+         "wrapper_ms": time_ms(lambda i: mk.mlstm_chunk(*ring[i % 4],
+                                                        chunk=chunk), 40),
+         "library_ms": None}
+    tri = chunk * (chunk + 1) // 2
+    flops = 2 * (2 * tri * d + 2 * chunk * d * d) * (s // chunk) * h * b
+    nbytes = (2 * 4 * b * s * h * d + 4 * 2 * b * s * h
+              + 4 * (b * h * d * d + b * h * d + b * h))
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t["bound_ms"] = max(t_ops, t_bytes)
+    t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"mlstm_chunk {XLSTM_MLSTM} bf16: device {t['ms']:.6f} ms (plain "
+        f"{t['plain_ms']:.6f}, no library call), eager wrapper "
+        f"{t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+    return t
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1131,6 +1413,7 @@ def main() -> int:
     from repro_torch.kernels import build, collective_stages as stages, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import mlstm_chunk as mk
     device = torch.device("cuda")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
@@ -1180,7 +1463,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ssd_t = time_mamba2_ssd(ssd, ref, device)
-    for arch, run in (("granite-3-2b", serve), ("zamba2-2.7b", zserve)):
+
+    mlstm_err = check_mlstm_chunk(mk, ref, device)
+    torch.cuda.empty_cache()
+    xserve = serving_main_path(
+        "xlstm-350m", XLSTM_PARAMS, (24, 1024, 4, 4),
+        {"mlstm_chunk": (mk.mlstm_chunk, 18)}, {"mlstm_impl": "ref"},
+        device, compare_dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mlstm_t = time_mlstm_chunk(mk, ref, device)
+    for arch, run in (("granite-3-2b", serve), ("zamba2-2.7b", zserve),
+                      ("xlstm-350m", xserve)):
         for leg, v in run["legs"].items():
             log(f"serve {arch} {leg}: {v['tokens_per_s']:.3f} tokens/s, p50 "
                 f"{v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms, wall "
@@ -1216,6 +1510,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/mamba2_ssd.py:79",
         "launches": zserve["launches"]["mamba2_ssd"], "max_abs_err": ssd_err,
         **ssd_t})
+    kernels.append({
+        "name": "mlstm_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+        "replaces": "src/repro/kernels/mlstm_chunk.py:90",
+        "launches": xserve["launches"]["mlstm_chunk"],
+        "max_abs_err": mlstm_err, **mlstm_t})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -10,11 +10,13 @@ phase: the wall milliseconds (per token for decode), the device busy time
 stream, so they do not overlap) and so the device's idle share, the
 number of device activities per step, the device time by kind (the
 hand-written kernels, matrix products, elementwise passes, reductions,
-copies, the rest) and the activities with the most device time.  Run on
-a CUDA device::
+copies, the rest), the activities with the most device time, and the
+host milliseconds spent inside each kind of block's forward (the sLSTM
+blocks' Python loop against the rest).  Run on a CUDA device::
 
     PYTHONPATH=src python -m repro_torch.bench.profile_serve \\
-        [--arch zamba2-2.7b] [--prompt-len 2048] [--gen 32]
+        [--arch zamba2-2.7b|granite-3-2b|xlstm-350m] [--prompt-len 2048] \\
+        [--gen 32]
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..serving.lm import LMAdapter
 
 # device activity kinds, by a substring of the kernel's name
 KINDS = (("mamba2_ssd", "mamba2_ssd_kernel"),
+         ("mlstm_chunk", "mlstm_chunk_kernel"),
          ("flash_attention", "flash_attention_kernel"),
          ("matmul", "nvjet"), ("matmul", "gemm"), ("matmul", "sm90_xmma"),
          ("matmul", "cutlass"), ("elementwise", "elementwise_kernel"),
@@ -71,14 +74,43 @@ def _phase(prof, wall_s: float, steps: int) -> Dict[str, object]:
     }
 
 
+class BlockHostTime:
+    """Host seconds inside each block class's ``forward`` (forward hooks on
+    every block of the units), per class name; ``reset`` zeroes them."""
+
+    def __init__(self, model: torch.nn.Module) -> None:
+        self.seconds: Dict[str, float] = {}
+        self._start: Dict[int, float] = {}
+        for unit in model.units:
+            for block in unit.blocks.values():
+                block.register_forward_pre_hook(self._enter)
+                block.register_forward_hook(self._leave)
+
+    def _enter(self, module, args) -> None:
+        self._start[id(module)] = time.perf_counter()
+
+    def _leave(self, module, args, out) -> None:
+        name = type(module).__name__
+        self.seconds[name] = self.seconds.get(name, 0.0) + (
+            time.perf_counter() - self._start.pop(id(module)))
+
+    def reset(self) -> None:
+        self.seconds.clear()
+
+    def ms(self, steps: int) -> Dict[str, float]:
+        return {k: v * 1e3 / steps for k, v in sorted(self.seconds.items())}
+
+
 def profile_request(arch: str, prompt_len: int, gen: int) -> dict:
     cfg = configs.get(arch)
     model = model_lib.init(cfg, seed=0, device="cuda")
+    blocks = BlockHostTime(model)
     adapter = LMAdapter(cfg, model, prompt_len=prompt_len, gen_len=gen,
                         device="cuda")
     adapter.warmup()
     req = Request(rid=0, prompt=1000, gen_len=gen)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    blocks.reset()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         handle, state = adapter.prefill(req)
@@ -88,6 +120,8 @@ def profile_request(arch: str, prompt_len: int, gen: int) -> dict:
     out = {"arch": arch, "prompt_len": prompt_len, "gen": gen,
            "device": torch.cuda.get_device_name(0),
            "prefill": _phase(prof, prefill_s, 1)}
+    out["prefill"]["host_ms_in_blocks_per_step"] = blocks.ms(1)
+    blocks.reset()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for step in range(1, gen):
@@ -96,6 +130,7 @@ def profile_request(arch: str, prompt_len: int, gen: int) -> dict:
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
     out["decode"] = _phase(prof, decode_s, gen - 1)
+    out["decode"]["host_ms_in_blocks_per_step"] = blocks.ms(gen - 1)
     return out
 
 

@@ -55,6 +55,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         #  chunk, dtype, stream)
         "mamba2_ssd_fwd": ((_P,) * 8 + (_I,) * 7 + (_P,), _I),
     },
+    "mlstm_chunk": {
+        # (q, k, v, i gate, f gate, y, C, n, m, b, s, h, d, chunk, dtype,
+        #  stream)
+        "mlstm_chunk_fwd": ((_P,) * 9 + (_I,) * 6 + (_P,), _I),
+    },
 }
 
 _lock = threading.Lock()

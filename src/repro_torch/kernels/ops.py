@@ -16,6 +16,7 @@ import torch
 from . import collective_stages as _stages
 from . import flash_attention as _flash
 from . import mamba2_ssd as _ssd
+from . import mlstm_chunk as _mlstm
 from . import ref
 
 IMPLS = (None, "cuda", "ref")
@@ -80,6 +81,44 @@ def mamba2_ssd(x, dt, A, B, C, *, chunk: int = 128, init_state=None,
 
 # Plain torch with no hand kernel, as in the JAX package: the decode path.
 ssd_decode_step = ref.ssd_decode_step
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+def mlstm_chunked(q, k, v, i_gate, f_gate, *, chunk: int, init=None,
+                  impl: Optional[str] = None):
+    """Chunkwise mLSTM at any s: q/k/v (b, s, h, d), i_gate/f_gate (b, s,
+    h).  As ``repro/kernels/ops.py``: ``chunk = min(chunk, s)`` when the
+    chunk does not divide s, and the inputs are padded to a multiple of it
+    (i = -1e30 on padded steps, no insertion; f = 30, log sigmoid ~ 0, no
+    decay: the state passes through) and y sliced back.  A zero initial
+    state (``init`` None) runs the Hopper kernel for CUDA tensors (its
+    plain version on the CPU); a given ``init`` (C, n, m), or
+    ``impl="ref"``, the plain ``ref.mlstm_chunked``, as the JAX package
+    routes it (its Pallas kernel has no initial state either).  Returns
+    (y, (C, n, m) fp32)."""
+    _check_impl("mlstm_chunked", impl)
+    s = q.shape[1]
+    chunk = min(chunk, s) if s % chunk else chunk
+    pad = (-s) % chunk
+    if pad:
+        F = torch.nn.functional
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        i_gate = F.pad(i_gate, (0, 0, 0, pad), value=-1e30)
+        f_gate = F.pad(f_gate, (0, 0, 0, pad), value=30.0)
+    if impl != "ref" and init is None:
+        y, st = _mlstm.mlstm_chunk(q, k, v, i_gate, f_gate, chunk=chunk)
+    else:
+        y, st = ref.mlstm_chunked(q, k, v, i_gate, f_gate, chunk=chunk,
+                                  init=init)
+    return (y[:, :s] if pad else y), st
+
+
+# Plain torch with no hand kernel, as in the JAX package: the decode path
+# and the stepwise oracle.
+mlstm_decode_step = ref.mlstm_decode_step
+mlstm_sequential = ref.mlstm_sequential
 
 
 # ---------------------------------------------------------------------------

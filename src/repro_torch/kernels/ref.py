@@ -11,7 +11,9 @@ the card.  Counterpart of the collective-stage oracles in
 the plain version of the attention kernel), and of the Mamba2 SSD ones
 (``ssd_chunked``, the plain version of the ``mamba2_ssd`` kernel;
 ``ssd_sequential``, the stepwise oracle; ``ssd_decode_step``, the decode
-path).
+path), and of the mLSTM ones (``mlstm_chunked``, the plain version of the
+``mlstm_chunk`` kernel; ``mlstm_sequential``, the stepwise oracle;
+``mlstm_decode_step``, the decode path).
 """
 
 from __future__ import annotations
@@ -312,3 +314,139 @@ def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                     C[:, t])
         ys.append(yt)
     return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory cell) -- chunked scan, stepwise oracle, decode
+# ---------------------------------------------------------------------------
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``log(sigmoid(x)) = min(x, 0) - log1p(exp(-|x|))``, the formula of
+    ``jax.nn.log_sigmoid`` and of the ``mlstm_chunk`` kernel."""
+    return torch.clamp_max(x, 0.0) - torch.log1p(torch.exp(-x.abs()))
+
+
+def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  i_gate: torch.Tensor, f_gate: torch.Tensor, *, chunk: int,
+                  init: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]]:
+    """Chunkwise stabilised mLSTM -- ``repro/kernels/ref.py``
+    ``mlstm_chunked`` and the plain version of the ``mlstm_chunk`` kernel,
+    computed as the Pallas body (``repro/kernels/mlstm_chunk.py``
+    ``_kernel``) and the Hopper kernel do: the log forget gates' cumsum in
+    the kernel's scan order (:func:`_block_cumsum`), the segment sums as
+    its differences, masked log-weights and a zero initial state's
+    stabiliser at -1e30 rather than -inf, the row maxima taken over the
+    masked matrix, the floor ``max(|den|, exp(-m))``.
+
+    q, k, v: (b, s, h, d); i_gate, f_gate: (b, s, h) pre-activation
+    logits; ``init`` (C (b, h, d, d), n (b, h, d), m (b, h)) or None.
+    ``s % chunk == 0``.  Returns (y (b, s, h, d) in q's dtype,
+    (C, n, m) fp32).
+    """
+    b, s, h, d = q.shape
+    if s % chunk:
+        raise ValueError(f"mlstm_chunked: s={s} is not a multiple of "
+                         f"chunk={chunk}")
+    nc = s // chunk
+    f32 = torch.float32
+
+    def heads(t):           # (b, s, h, ...) -> (b, h, nc, chunk, ...)
+        t = t.to(f32).reshape((b, nc, chunk, h) + tuple(t.shape[3:]))
+        return t.movedim(3, 1)
+
+    qf, kf, vf, ig = heads(q), heads(k), heads(v), heads(i_gate)
+    lf_cum = _block_cumsum(heads(_log_sigmoid(f_gate.to(f32))))
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=q.device))
+    seg = lf_cum[..., :, None] - lf_cum[..., None, :]
+    a = torch.where(mask, seg + ig[..., None, :], NEG_INF)  # (b,h,c,l,l)
+    m_local = a.amax(dim=-1)                                # (b,h,c,l)
+    if init is None:
+        C = torch.zeros((b, h, d, d), dtype=f32, device=q.device)
+        n = torch.zeros((b, h, d), dtype=f32, device=q.device)
+        m = torch.full((b, h), NEG_INF, dtype=f32, device=q.device)
+    else:
+        C, n, m = (t.to(f32) for t in init)
+    ys = []
+    for c in range(nc):
+        qc, kc, vc, lfc = qf[:, :, c], kf[:, :, c], vf[:, :, c], \
+            lf_cum[:, :, c]
+        m_in = lfc + m[..., None]                           # (b,h,l)
+        m_new = torch.maximum(m_local[:, :, c], m_in)
+        w = torch.exp(a[:, :, c] - m_new[..., None])        # (b,h,l,l)
+        scores = torch.matmul(qc, kc.transpose(-1, -2)) * w
+        num = torch.matmul(scores, vc)
+        den = scores.sum(dim=-1)
+        scale_in = torch.exp(m_in - m_new)
+        num = num + torch.matmul(qc, C) * scale_in[..., None]
+        den = den + (qc * n[..., None, :]).sum(dim=-1) * scale_in
+        den = torch.maximum(den.abs(), torch.exp(-m_new))
+        ys.append(num / den[..., None])
+        total = lfc[..., -1]
+        m_end = m_new[..., -1]
+        w_end = torch.exp(ig[:, :, c] + total[..., None] - lfc
+                          - m_end[..., None])
+        decay = torch.exp(total + m - m_end)
+        kw = kc * w_end[..., None]
+        C = C * decay[..., None, None] + torch.matmul(kw.transpose(-1, -2),
+                                                      vc)
+        n = n * decay[..., None] + kw.sum(dim=-2)
+        m = m_end
+    y = torch.stack(ys, dim=2).movedim(1, 3).reshape(b, s, h, d)
+    return y.to(q.dtype), (C, n, m)
+
+
+def mlstm_decode_step(state: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                      qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                      it: torch.Tensor, ft: torch.Tensor
+                      ) -> Tuple[Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor], torch.Tensor]:
+    """One stabilised mLSTM step in fp32 (``repro/kernels/ref.py``
+    ``mlstm_decode_step``): state (C (b, h, d, d), n (b, h, d), m (b, h));
+    qt/kt/vt (b, h, d); it/ft (b, h).  Returns (new state, yt (b, h, d)
+    fp32)."""
+    C, n, m = state
+    f32 = torch.float32
+    qt, kt, vt = qt.to(f32), kt.to(f32), vt.to(f32)
+    it = it.to(f32)
+    logf = _log_sigmoid(ft.to(f32))
+    m_new = torch.maximum(logf + m, it)
+    fs = torch.exp(logf + m - m_new)
+    is_ = torch.exp(it - m_new)
+    C = C * fs[..., None, None] + is_[..., None, None] * (
+        kt[..., :, None] * vt[..., None, :])
+    n = n * fs[..., None] + is_[..., None] * kt
+    num = torch.einsum("bhdj,bhd->bhj", C, qt)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", n, qt).abs(),
+                        torch.exp(-m_new))
+    return (C, n, m_new), num / den[..., None]
+
+
+def mlstm_sequential(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     i_gate: torch.Tensor, f_gate: torch.Tensor, *,
+                     init: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                    torch.Tensor,
+                                                    torch.Tensor]]:
+    """Stepwise oracle (``repro/kernels/ref.py`` ``mlstm_sequential``,
+    xLSTM eqs. 19-27): :func:`mlstm_decode_step` over every position from
+    ``init`` or the zero state (m = -inf).  Returns (y in q's dtype,
+    (C, n, m) fp32)."""
+    b, s, h, d = q.shape
+    f32 = torch.float32
+    if init is None:
+        state = (torch.zeros((b, h, d, d), dtype=f32, device=q.device),
+                 torch.zeros((b, h, d), dtype=f32, device=q.device),
+                 torch.full((b, h), float("-inf"), dtype=f32,
+                            device=q.device))
+    else:
+        state = tuple(t.to(f32) for t in init)
+    ys = []
+    for t in range(s):
+        state, yt = mlstm_decode_step(state, q[:, t], k[:, t], v[:, t],
+                                      i_gate[:, t], f_gate[:, t])
+        ys.append(yt)
+    return torch.stack(ys, dim=1).to(q.dtype), state

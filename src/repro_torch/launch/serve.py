@@ -16,6 +16,8 @@ It runs on the CUDA device unless ``--device`` names another::
       --scale smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --scale smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+      --scale smoke --device cpu
 """
 
 from __future__ import annotations
@@ -51,6 +53,9 @@ def main(argv=None) -> int:
     p.add_argument("--ssd-impl", default=None, choices=["cuda", "ref"],
                    help="prefill SSD scan of Mamba2 blocks: the Hopper "
                         "kernel (default) or its plain version")
+    p.add_argument("--mlstm-impl", default=None, choices=["cuda", "ref"],
+                   help="prefill scan of mLSTM blocks: the Hopper kernel "
+                        "(default) or its plain version")
     args = p.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.scale == "smoke" \
@@ -62,7 +67,8 @@ def main(argv=None) -> int:
 
     adapter = LMAdapter(cfg, params, prompt_len=args.prompt_len,
                         gen_len=args.gen, device=args.device,
-                        attn_impl=args.attn_impl, ssd_impl=args.ssd_impl)
+                        attn_impl=args.attn_impl, ssd_impl=args.ssd_impl,
+                        mlstm_impl=args.mlstm_impl)
     adapter.warmup()
 
     engine = ServingEngine(adapter, slots=args.slots,

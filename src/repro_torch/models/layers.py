@@ -1,7 +1,8 @@
 """Neural network blocks of the port: norms, RoPE, GQA attention, MLP, the
-Mamba2 (SSD) block and Zamba2's shared attention block — the counterparts
-of ``repro/models/layers.py`` (``norm_*``, ``rope_*``, ``attn_*``,
-``mlp_*``, ``mamba2_*``, ``shared_attn_*``).
+Mamba2 (SSD) block, the xLSTM mLSTM and sLSTM blocks and Zamba2's shared
+attention block — the counterparts of ``repro/models/layers.py``
+(``norm_*``, ``rope_*``, ``attn_*``, ``mlp_*``, ``mamba2_*``, ``mlstm_*``,
+``slstm_*``, ``shared_attn_*``).
 
 Each block is an ``nn.Module`` whose weights keep the JAX package's
 orientation ``(d_in, d_out)``, applied as ``x @ w``, so the reference's
@@ -9,8 +10,8 @@ parameters load without transposes (:func:`repro_torch.models.model
 .params_from_reference`).  Numerics policy as in the reference: weights and
 activations in ``cfg.dtype``; norms and RoPE in fp32, cast back.
 
-MoE, mLSTM and sLSTM are not ported yet: :func:`check_supported` raises
-for a config that uses them.
+MoE is not ported yet: :func:`check_supported` raises for a config that
+uses it.
 """
 
 from __future__ import annotations
@@ -23,10 +24,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from .config import ModelConfig, ATTN, SWA, MLP, MAMBA2, SHARED_ATTN
+from .config import (ModelConfig, ATTN, SWA, MLP, MAMBA2, MLSTM, SLSTM,
+                     SHARED_ATTN)
 
 Cache = Optional[Dict[str, torch.Tensor]]
-SUPPORTED = (ATTN, SWA, MLP, MAMBA2, SHARED_ATTN)
+SUPPORTED = (ATTN, SWA, MLP, MAMBA2, MLSTM, SLSTM, SHARED_ATTN)
+NEG = -1e30         # the caches' stand-in for an mLSTM stabiliser of -inf
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -270,6 +273,173 @@ class Mamba2(nn.Module):
         g = g * torch.rsqrt(g.square().mean(dim=-1, keepdim=True)
                             + cfg.norm_eps) * self.gn
         return g.to(x.dtype) @ self.out
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM block (matrix memory, chunkwise parallel)
+# ---------------------------------------------------------------------------
+class MLSTM(nn.Module):
+    """The mLSTM block: ``x @ wup`` split into ``z`` (first half) and
+    ``xi``; q, k, v projections of ``xi`` (q scaled by ``dh ** -0.5`` in
+    the activation dtype); fp32 input and forget gate logits
+    ``xi @ w{i,f} + b{i,f}``; the chunked scan through
+    ``ops.mlstm_chunked`` (the Hopper kernel on the card) or, for a decode
+    step, ``ops.mlstm_decode_step``; the fp32 RMS norm times ``gn``; then
+    ``× silu(z)`` and ``@ wd``."""
+
+    CONSTANTS = {"bi": 0.0, "bf": 3.0, "gn": 1.0}   # open forget gates
+
+    def __init__(self, cfg: ModelConfig, device=None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        din = int(cfg.mlstm_proj_factor * d)
+        H = cfg.n_heads
+        dt, f32 = cfg.activation_dtype, torch.float32
+        self.wup = _param((d, 2 * din), dt, device)
+        self.wq = _param((din, din), dt, device)
+        self.wk = _param((din, din), dt, device)
+        self.wv = _param((din, din), dt, device)
+        self.wi = _param((din, H), f32, device)
+        self.bi = _param((H,), f32, device)
+        self.wf = _param((din, H), f32, device)
+        self.bf = _param((H,), f32, device)
+        self.gn = _param((din,), f32, device)
+        self.wd = _param((din, d), dt, device)
+
+    def forward(self, x: torch.Tensor, *, cache: Cache = None,
+                decode: bool = False,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """``cache`` is this block's ``C`` (B, H, dh, dh), ``n`` (B, H, dh)
+        and ``m`` (B, H), fp32, written IN PLACE: prefill stores the final
+        state; a ``decode`` step starts from it.  A stabiliser of -inf is
+        kept as -1e30 in the cache, as the reference's."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        H = cfg.n_heads
+        din = self.wq.shape[0]
+        dh = din // H
+        z, xi = torch.chunk(x @ self.wup, 2, dim=-1)
+        # the scale rounded to the activation dtype first, as XLA rounds
+        # the reference's weakly typed Python float
+        scale = torch.tensor(dh ** -0.5, dtype=x.dtype)
+        q = (xi @ self.wq).view(B, S, H, dh) * scale
+        k = (xi @ self.wk).view(B, S, H, dh)
+        v = (xi @ self.wv).view(B, S, H, dh)
+        xf = xi.float()
+        ig = xf @ self.wi + self.bi                          # (B, S, H)
+        fg = xf @ self.wf + self.bf
+        init = None
+        if decode:
+            m = cache["m"]
+            init = (cache["C"], cache["n"],
+                    torch.where(m <= -1e29, float("-inf"), m))
+        if decode and S == 1:
+            state, y = ops.mlstm_decode_step(init, q[:, 0], k[:, 0], v[:, 0],
+                                             ig[:, 0], fg[:, 0])
+            y = y[:, None].to(x.dtype)
+        else:
+            y, state = ops.mlstm_chunked(q, k, v, ig, fg,
+                                         chunk=min(cfg.ssm_chunk, S),
+                                         init=init, impl=impl)
+        if cache is not None:
+            C, n, m = state
+            cache["C"].copy_(C)
+            cache["n"].copy_(n)
+            cache["m"].copy_(torch.where(torch.isfinite(m), m, NEG))
+        y = y.reshape(B, S, din).float()
+        y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True)
+                            + cfg.norm_eps) * self.gn
+        return (y.to(x.dtype) * _silu(z)) @ self.wd
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: sLSTM block (scalar memory, sequential recurrence)
+# ---------------------------------------------------------------------------
+_GATES = ("i", "f", "z", "o")
+
+
+class SLSTM(nn.Module):
+    """The sLSTM block: per head, a stabilised scalar-memory recurrence
+    over the sequence with gate pre-activations ``x @ w_g + b_g`` plus the
+    head's recurrent ``h @ r_g`` (``r_g`` (H, dh, dh)); ``h = o · c /
+    max(n, 1e-6)``; the fp32 RMS norm times ``gn``; then the
+    ``gelu(· @ wu) @ wd2`` projection (tanh GeLU, as ``jax.nn.gelu``),
+    ``ffd = ceil(int(slstm_proj_factor · d) / 64) · 64``.
+
+    The reference scans ``_slstm_step`` with ``x_t @ w_g`` inside the step;
+    here those products, which do not depend on the recurrence, and their
+    biases are computed once for the whole sequence, and the step keeps
+    its state head-major, (H, B, dh), so that the four recurrent products
+    are one batched matmul.  Plain torch, no kernel: the Python loop runs
+    S steps."""
+
+    CONSTANTS = {"bi": 0.0, "bf": 1.0, "bz": 0.0, "bo": 0.0, "gn": 1.0}
+
+    def __init__(self, cfg: ModelConfig, device=None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        d, H = cfg.d_model, cfg.n_heads
+        dh = d // H
+        dt, f32 = cfg.activation_dtype, torch.float32
+        ffd = -(-int(cfg.slstm_proj_factor * d) // 64) * 64
+        self.gn = _param((d,), f32, device)
+        self.wu = _param((d, ffd), dt, device)
+        self.wd2 = _param((ffd, d), dt, device)
+        for g in _GATES:
+            setattr(self, f"w{g}", _param((d, d), f32, device))
+            setattr(self, f"r{g}", _param((H, dh, dh), f32, device))
+            setattr(self, f"b{g}", _param((d,), f32, device))
+        # the reference draws r_g at fan-in dh, not shape[0] = H
+        self.init_fan_in = {f"r{g}": dh for g in _GATES}
+
+    def forward(self, x: torch.Tensor, *, cache: Cache = None,
+                decode: bool = False) -> torch.Tensor:
+        """``cache`` is this block's ``c``, ``n``, ``h``, ``m``, each (B, d)
+        fp32, written IN PLACE: prefill starts from the zero state (n = 1)
+        and stores the final one; a ``decode`` step starts from it."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        H = cfg.n_heads
+        dh = d // H
+        xf = x.float()
+
+        def head_major(t):          # (..., B, d) -> (..., H, B, dh)
+            return t.unflatten(-1, (H, dh)).transpose(-2, -3)
+
+        # (S, 4, H, B, dh): x_t @ w_g + b_g of every step and gate
+        gx = torch.stack([xf @ getattr(self, f"w{g}") + getattr(self, f"b{g}")
+                          for g in _GATES], dim=0)          # (4, B, S, d)
+        gx = head_major(gx.transpose(1, 2)).transpose(0, 1).contiguous()
+        R = torch.cat([getattr(self, f"r{g}") for g in _GATES], dim=-1)
+        if decode:
+            c, n, h, m = (head_major(cache[k]) for k in ("c", "n", "h", "m"))
+        else:
+            zeros = xf.new_zeros((H, B, dh))
+            c, n, h, m = zeros, torch.ones_like(zeros), zeros, zeros
+        hs = xf.new_empty((S, H, B, dh))
+        for t in range(S):
+            pre = gx[t] + torch.bmm(h, R).unflatten(-1, (4, dh)) \
+                .movedim(-2, 0)                             # (4, H, B, dh)
+            it, ft = pre[0], pre[1]
+            zt, ot = torch.tanh(pre[2]), torch.sigmoid(pre[3])
+            logf_m = F.logsigmoid(ft) + m
+            m_new = torch.maximum(logf_m, it)
+            i_s = torch.exp(it - m_new)
+            f_s = torch.exp(logf_m - m_new)
+            c = f_s * c + i_s * zt
+            n = f_s * n + i_s
+            h = ot * (c / n.clamp_min(1e-6))
+            m = m_new
+            hs[t] = h
+        if cache is not None:
+            for k, t in (("c", c), ("n", n), ("h", h), ("m", m)):
+                cache[k].copy_(t.transpose(0, 1).reshape(B, d))
+        y = hs.permute(2, 0, 1, 3).reshape(B, S, d)
+        y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True)
+                            + cfg.norm_eps) * self.gn
+        y = y.to(x.dtype)
+        return F.gelu(y @ self.wu, approximate="tanh") @ self.wd2
 
 
 # ---------------------------------------------------------------------------

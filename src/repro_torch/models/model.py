@@ -1,6 +1,7 @@
 """Composable block-pattern language model — the port of
 ``repro/models/model.py`` for the block kinds ported so far (attention,
-sliding-window attention, MLP, Mamba2 and Zamba2's shared attention).
+sliding-window attention, MLP, Mamba2, the xLSTM mLSTM and sLSTM blocks
+and Zamba2's shared attention).
 
 A model is ``cfg.pattern`` (a repeating unit of layers, each a tuple of
 blocks) applied ``cfg.repeats`` times, pre-norm with residual connections.
@@ -23,8 +24,11 @@ Three entry modes (:func:`apply`):
 The cache (:func:`init_cache`) is the reference's layout: per attention or
 shared-attention entry, k and v of shape (repeats, B, T, Hkv, dh); per
 Mamba2 block, the SSD ``state`` (repeats, B, H, P, n) fp32 and the
-``conv`` tail (repeats, B, K-1, d_inner + 2n).  Unlike the JAX package,
-which returns new arrays, prefill and decode write it in place.
+``conv`` tail (repeats, B, K-1, d_inner + 2n); per mLSTM block ``C``
+(repeats, B, H, dh, dh), ``n`` (repeats, B, H, dh) and ``m`` (repeats, B,
+H), per sLSTM block ``c``, ``n``, ``h`` and ``m`` (repeats, B, d), all
+fp32.  Unlike the JAX package, which returns new arrays, prefill and
+decode write it in place.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ from torch import nn
 
 from ..core.mesh import resolve_device
 from . import layers as L
-from .config import ModelConfig, ATTN, SWA, MLP, MAMBA2, SHARED_ATTN
+from .config import (ModelConfig, ATTN, SWA, MLP, MAMBA2, MLSTM, SLSTM,
+                     SHARED_ATTN)
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 MODES = ("train", "prefill", "decode")
@@ -69,6 +74,10 @@ class Unit(nn.Module):
                 self.blocks[name] = L.Attention(cfg, device)
             elif kind == MAMBA2:
                 self.blocks[name] = L.Mamba2(cfg, device)
+            elif kind == MLSTM:
+                self.blocks[name] = L.MLSTM(cfg, device)
+            elif kind == SLSTM:
+                self.blocks[name] = L.SLSTM(cfg, device)
             else:
                 self.blocks[name] = L.MLPBlock(cfg, device)
 
@@ -77,7 +86,8 @@ class Unit(nn.Module):
                 mode: str,
                 cache: Optional[Dict[str, Dict[str, torch.Tensor]]],
                 cache_index: Optional[int], attn_impl: Optional[str],
-                ssd_impl: Optional[str]) -> torch.Tensor:
+                ssd_impl: Optional[str],
+                mlstm_impl: Optional[str]) -> torch.Tensor:
         cfg = self.cfg
         decode = mode == "decode"
         for name, norm_name, kind in _block_names(cfg):
@@ -93,6 +103,11 @@ class Unit(nn.Module):
             elif kind == MAMBA2:
                 h = self.blocks[name](xin, cache=c, decode=decode,
                                       impl=ssd_impl)
+            elif kind == MLSTM:
+                h = self.blocks[name](xin, cache=c, decode=decode,
+                                      impl=mlstm_impl)
+            elif kind == SLSTM:
+                h = self.blocks[name](xin, cache=c, decode=decode)
             else:
                 win = cfg.sliding_window if kind == SWA else None
                 h = self.blocks[name](
@@ -143,7 +158,8 @@ class Model(nn.Module):
                 mode: str = "train", cache: Optional[Cache] = None,
                 cache_index: Optional[int] = None,
                 attn_impl: Optional[str] = None,
-                ssd_impl: Optional[str] = None
+                ssd_impl: Optional[str] = None,
+                mlstm_impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
         cfg = self.cfg
         if mode not in MODES:
@@ -175,7 +191,8 @@ class Model(nn.Module):
                 for name, c in cache.items()}
             x = unit(x, x0=x0, shared=self.shared, angles=angles, mode=mode,
                      cache=unit_cache, cache_index=cache_index,
-                     attn_impl=attn_impl, ssd_impl=ssd_impl)
+                     attn_impl=attn_impl, ssd_impl=ssd_impl,
+                     mlstm_impl=mlstm_impl)
         if mode == "prefill":
             x = x[:, -1:]
         return self._head(x), (None if mode == "train" else cache)
@@ -184,15 +201,19 @@ class Model(nn.Module):
 def apply(model: Model, batch: Mapping[str, torch.Tensor], *,
           mode: str = "train", cache: Optional[Cache] = None,
           cache_index: Optional[int] = None,
-          attn_impl: Optional[str] = None, ssd_impl: Optional[str] = None
+          attn_impl: Optional[str] = None, ssd_impl: Optional[str] = None,
+          mlstm_impl: Optional[str] = None
           ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Forward pass; returns ``(logits, cache)``.  ``attn_impl`` is handed
-    to ``ops.flash_attention`` and ``ssd_impl`` to ``ops.mamba2_ssd``
-    (None or "cuda": the kernel on the card; "ref": its plain version).
-    Prefill without a cache allocates one of length S; with one, it fills
-    positions [0, S) of it and every Mamba2 block's state and conv tail."""
+    to ``ops.flash_attention``, ``ssd_impl`` to ``ops.mamba2_ssd`` and
+    ``mlstm_impl`` to ``ops.mlstm_chunked`` (None or "cuda": the kernel on
+    the card; "ref": its plain version).  Prefill without a cache
+    allocates one of length S; with one, it fills positions [0, S) of it
+    and every recurrent block's state (from the zero state, whatever the
+    cache held)."""
     return model(batch, mode=mode, cache=cache, cache_index=cache_index,
-                 attn_impl=attn_impl, ssd_impl=ssd_impl)
+                 attn_impl=attn_impl, ssd_impl=ssd_impl,
+                 mlstm_impl=mlstm_impl)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
@@ -201,12 +222,20 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     of shape (repeats, batch, cache_len, Hkv, dh) in ``cfg.dtype`` for
     every attention and shared-attention entry; for every Mamba2 block the
     SSD ``state`` (repeats, batch, H, P, n) in fp32 and the ``conv`` tail
-    (repeats, batch, K-1, d_inner + 2n) in ``cfg.dtype``."""
+    (repeats, batch, K-1, d_inner + 2n) in ``cfg.dtype``; for every mLSTM
+    block ``C``, ``n`` (zeros) and ``m`` (-1e30), for every sLSTM block
+    ``c``, ``h``, ``m`` (zeros) and ``n`` (ones), fp32, as the reference's
+    ``mlstm_cache_init`` and ``slstm_cache_init``."""
     device = resolve_device(device)
     dt, R = cfg.activation_dtype, cfg.repeats
+    f32 = torch.float32
+
+    def full(shape, value, dtype=f32):
+        return torch.full((R, batch) + shape, value, dtype=dtype,
+                          device=device)
 
     def zeros(shape, dtype=dt):
-        return torch.zeros((R, batch) + shape, dtype=dtype, device=device)
+        return full(shape, 0.0, dtype)
 
     kv = (cache_len, cfg.n_kv_heads, cfg.head_dim)
     H = cfg.n_ssm_heads
@@ -220,6 +249,16 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                                torch.float32),
                 "conv": zeros((cfg.ssm_conv - 1,
                                cfg.d_inner + 2 * cfg.ssm_state))}
+        elif kind == MLSTM:
+            Hm = cfg.n_heads
+            dh = int(cfg.mlstm_proj_factor * cfg.d_model) // Hm
+            cache[name] = {"C": zeros((Hm, dh, dh), f32),
+                           "n": zeros((Hm, dh), f32),
+                           "m": full((Hm,), L.NEG)}
+        elif kind == SLSTM:
+            d = (cfg.d_model,)
+            cache[name] = {"c": zeros(d, f32), "n": full(d, 1.0),
+                           "h": zeros(d, f32), "m": zeros(d, f32)}
     return cache
 
 
@@ -232,7 +271,9 @@ def _fill_normal(p: torch.Tensor, gen: torch.Generator, std: float) -> None:
 
 
 # Leaves drawn as constants, and normal leaves whose scale is not
-# 1/sqrt(fan_in): the reference's norm_init, mamba2_init and init.
+# 1/sqrt(fan_in): the reference's norm_init, mamba2_init and init.  A
+# block's own ``CONSTANTS`` (the xLSTM gate biases) take precedence, and
+# its ``init_fan_in`` names leaves whose fan-in is not ``shape[0]``.
 _CONSTANT = {"scale": 1.0, "bias": 0.0, "dt_bias": 0.0, "A_log": 0.0,
              "conv_b": 0.0, "D": 1.0, "gn": 1.0}
 _STD = {"embed": 0.02, "conv_w": 0.1}
@@ -244,19 +285,24 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     ``seed``, drawn tensor by tensor straight into ``cfg.dtype``:
     embedding ``N(0, 0.02²)``, projections ``N(0, 1/fan_in)``, norms at
     scale 1 and bias 0; in a Mamba2 block ``dt_bias``, ``A_log`` and
-    ``conv_b`` 0, ``D`` and ``gn`` 1, ``conv_w`` ``N(0, 0.1²)``.  (The JAX
+    ``conv_b`` 0, ``D`` and ``gn`` 1, ``conv_w`` ``N(0, 0.1²)``; in an
+    mLSTM block ``bi`` 0 and ``bf`` 3, in an sLSTM block ``bf`` 1, the
+    other gate biases 0 and the recurrent ``r*`` at fan-in dh.  (The JAX
     package draws the same distributions from ``jax.random``, so the
     numbers differ.)"""
     model = Model(cfg, device)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in _CONSTANT:
-            p.fill_(_CONSTANT[leaf])
-        else:
-            _fill_normal(p, gen, _STD.get(
-                leaf, 1.0 / math.sqrt(max(p.shape[0], 1))))
+    for module in model.modules():
+        consts = {**_CONSTANT, **getattr(module, "CONSTANTS", {})}
+        fan_in = getattr(module, "init_fan_in", {})
+        for leaf, p in module.named_parameters(recurse=False):
+            if leaf in consts:
+                p.fill_(consts[leaf])
+            else:
+                fan = fan_in.get(leaf, p.shape[0])
+                _fill_normal(p, gen, _STD.get(
+                    leaf, 1.0 / math.sqrt(max(fan, 1))))
     return model
 
 

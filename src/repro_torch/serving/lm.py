@@ -2,8 +2,9 @@
 ``repro/serving/lm.py``.
 
 Each request runs batch-1 greedy decoding with its own fixed-size
-``(prompt_len + gen_len)`` cache — k/v of every attention block, and the
-SSD state and conv tail of every Mamba2 block — which prefill fills in
+``(prompt_len + gen_len)`` cache — k/v of every attention block, the SSD
+state and conv tail of every Mamba2 block, the (C, n, m) of every mLSTM
+block and the (c, n, h, m) of every sLSTM block — which prefill fills in
 place and each decode step extends in place.  One card holds the model whole, so there
 is no mesh and no sharding policy.
 
@@ -46,14 +47,15 @@ __all__ = ["LMAdapter"]
 class LMAdapter:
     """Batch-1 greedy-decode adapter over a :class:`repro_torch.models
     .model.Model` (``params``) on ``device`` (the CUDA device unless
-    named).  ``attn_impl`` goes to the prefill attention and ``ssd_impl``
-    to the prefill SSD scan (None: the Hopper kernel on the card; "ref":
-    its plain version)."""
+    named).  ``attn_impl`` goes to the prefill attention, ``ssd_impl`` to
+    the prefill SSD scan and ``mlstm_impl`` to the prefill mLSTM scan
+    (None: the Hopper kernel on the card; "ref": its plain version)."""
 
     def __init__(self, cfg: ModelConfig, params: model_lib.Model, *,
                  prompt_len: int, gen_len: int, device=None,
                  attn_impl: Optional[str] = None,
                  ssd_impl: Optional[str] = None,
+                 mlstm_impl: Optional[str] = None,
                  prompt_tokens: Optional[Callable[[Request],
                                                   torch.Tensor]] = None
                  ) -> None:
@@ -69,6 +71,7 @@ class LMAdapter:
         self.total_len = prompt_len + gen_len
         self.attn_impl = attn_impl
         self.ssd_impl = ssd_impl
+        self.mlstm_impl = mlstm_impl
         self.prompt_tokens = prompt_tokens or self._seeded_prompt
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)     # the weights are ready
@@ -114,7 +117,8 @@ class LMAdapter:
                                          device=self.device)
             logits, cache = model_lib.apply(
                 self.model, {"tokens": tokens}, mode="prefill", cache=cache,
-                attn_impl=self.attn_impl, ssd_impl=self.ssd_impl)
+                attn_impl=self.attn_impl, ssd_impl=self.ssd_impl,
+                mlstm_impl=self.mlstm_impl)
             handle, tok = self._token(logits)
         return handle, (stream, cache, tok)
 

@@ -12,8 +12,8 @@
    the queue head, the world shrinks, every request still finishes with
    its full stream.
 5. **The real model** — the port's ``LMAdapter`` (smoke granite-3-2b,
-   and smoke zamba2-2.7b with a 24-token prompt so that the SSD pads to its
-   chunk, fp32, on the CPU) under the port's engine gives the same greedy
+   and smoke zamba2-2.7b and xlstm-350m with a 24-token prompt so that the
+   SSD and mLSTM scans pad to their chunk, fp32, on the CPU) under the port's engine gives the same greedy
    streams as the JAX ``LMAdapter`` under the JAX engine on the
    reference's weights and prompt tokens, on both legs.
 
@@ -365,6 +365,28 @@ def test_lm_adapter_zamba2_streams_equal_jax(zamba_pair, completion):
     assert rep.outputs == want
 
 
+@pytest.fixture(scope="module")
+def xlstm_pair():
+    pair = _reference_pair("xlstm-350m", ZAMBA_PROMPT)
+    return pair, _reference_streams(pair[0], pair[1], ZAMBA_PROMPT)
+
+
+@pytest.mark.parametrize("completion", ["event", "blocking"])
+def test_lm_adapter_xlstm_streams_equal_jax(xlstm_pair, completion):
+    """Smoke xlstm-350m: each request's cache carries every mLSTM block's
+    (C, n, m) and the sLSTM block's (c, n, h, m), and the greedy streams
+    equal the JAX ``LMAdapter``'s."""
+    (_, _, pcfg, model, prompt_tokens), want = xlstm_pair
+    adapter = LMAdapter(pcfg, model, prompt_len=ZAMBA_PROMPT, gen_len=GEN,
+                        device="cpu", prompt_tokens=prompt_tokens)
+    adapter.warmup()
+    rep = ServingEngine(adapter, slots=2, completion=completion,
+                        num_workers=2).run(
+        [Request(rid=i, prompt=100 + i, gen_len=GEN) for i in range(N_REQ)])
+    assert rep.tokens == N_REQ * GEN
+    assert rep.outputs == want
+
+
 def test_lm_adapter_default_prompts_legs_equal(lm_pair):
     """With its own seeded prompts, both legs give the same streams and a
     re-run of one prompt repeats its stream."""
@@ -474,3 +496,25 @@ def test_serve_cli_zamba2_smoke_on_card(capsys, completion):
     # shared-attention call per prefill
     assert ssd.mamba2_ssd.launches - before[0] == 5 * 6
     assert fa.flash_attention.launches - before[1] == 5 * 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("completion", ["event", "blocking"])
+def test_serve_cli_xlstm_smoke_on_card(capsys, completion):
+    """The serving CLI serves smoke xlstm-350m on the card (mLSTM head dim
+    32, chunk 16, a prompt of 24 that pads to the chunk): every mLSTM
+    prefill through ``mlstm_chunk``, none in decode; ``--mlstm-impl ref``
+    launches it never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import mlstm_chunk as mk
+    from repro_torch.launch import serve
+    before = mk.mlstm_chunk.launches
+    args = ["--arch", "xlstm-350m", "--prompt-len", "24", "--gen", "8",
+            "--completion", completion]
+    assert serve.main(args) == 0
+    assert "device=cuda" in capsys.readouterr().out
+    # the warm-up request and the 4 served ones; 3 mLSTM blocks a prefill
+    assert mk.mlstm_chunk.launches - before == 5 * 3
+    assert serve.main(args + ["--mlstm-impl", "ref"]) == 0
+    assert mk.mlstm_chunk.launches - before == 5 * 3
