@@ -55,9 +55,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     shapes of the JAX package's kernel test, S = T = 1000 and S = 1 with
     T = 2080, and the prefill shape of the smoke-scale granite-3-2b that
     the serving CLI runs by default (1, 32, 4/2, 16), in fp32 and bf16,
-    then granite-3-2b's prefill shape (1, 2048, 32/8, 64) and zamba2-2.7b's
-    shared-attention shape (1, 2048, 32/32, 80), each in bf16 (the main
-    path's) and in fp32 (the same tiling held to fp32's tolerance) —
+    then granite-3-2b's prefill shape (1, 2048, 32/8, 64), zamba2-2.7b's
+    shared-attention shape (1, 2048, 32/32, 80) and olmoe-1b-7b's prefill
+    shape (1, 2048, 16/16, 128), each in bf16 (the main path's) and in fp32 (the same tiling held to fp32's tolerance) —
     within 2e-5 (fp32) and 2e-2 (bf16), and two calls bitwise equal.
 11. The serving main path: granite-3-2b at full width and depth
     (2,533,531,648 parameters, bf16, random weights from seed 0) served
@@ -112,17 +112,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
     whole-model difference is reported beside a one-ulp baseline.
 18. Timing of ``mlstm_chunk`` at xlstm's prefill shape, as in phase 5 (no
     PyTorch call computes the chunked mLSTM: ``library_ms`` is null).
+19. ``moe_gmm`` against its plain version on the card: the JAX package's
+    kernel-test shapes (E, C, K, N), ragged C, K and N down to C = 2,
+    olmoe-1b-7b's decode shapes (64, 8, 2048, 1024) and (64, 8, 1024, 2048)
+    and its prefill shapes (64, 320, 2048, 1024) and (64, 320, 1024, 2048),
+    in fp32 and bf16 — within 2e-5 (fp32) and 2e-2 (bf16), atol = rtol, at
+    the small shapes, and as max|diff| / max|plain| at olmoe's (K of
+    1024-2048 makes an elementwise rtol meaningless near 0); two calls
+    bitwise equal.
+20. The olmoe serving path: olmoe-1b-7b at full width and depth
+    (6,919,096,320 parameters: 16 layers of attention and a MoE block of 64
+    experts, top-8), as phase 11 — identical streams on both legs,
+    ``flash_attention`` launched exactly 16 x 4 times per leg (prefill)
+    and ``moe_gmm`` 48 x 32 x 4 (three expert products per MoE block, in
+    prefill and in each of the 31 decode steps).  Routing is
+    discontinuous (a one-ulp change of a router input can swap an expert),
+    so every MoE block is held alone on the plain path's input to it
+    (identical expert choices, y within 2e-2 of its largest value); the
+    whole model gets phase 11's gates in bf16 where they hold, else on an
+    fp32 copy of the weights; the number of (layer, token) top-8 sets that
+    differ between the kernel and plain paths is printed.
+21. Timing of ``moe_gmm`` at olmoe's two prefill shapes and its decode
+    shape, as in phase 5, beside ``torch.bmm`` in bf16 (``library_ms``),
+    and of ``flash_attention`` at olmoe's prefill shape beside
+    ``scaled_dot_product_attention``.
 
+After each served model, the memory it held must be free again without
+the cyclic garbage collector (within 1 GiB of what was allocated before).
 Prints the per-version wall time, the wall time of each ``sync_grads``
 run, tokens/s and p50/p99 token latency per serving leg of each model,
-the ``kernels`` JSON line (seven kernels), the card's name and power
+the ``kernels`` JSON line (eight kernels), the card's name and power
 limit, and last ``{"ok": true,
 "device": {...}}``.  It imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
-import gc
 import json
 import subprocess
 import sys
@@ -750,6 +775,8 @@ FLASH_CASES = (
 GRANITE_PREFILL = (1, 2048, 2048, 32, 8, 64, True, None)
 # zamba2-2.7b's shared attention: 32 heads of dim 80 over 32 kv heads
 ZAMBA_PREFILL = (1, 2048, 2048, 32, 32, 80, True, None)
+# olmoe-1b-7b's attention: 16 heads of dim 128 over 16 kv heads
+OLMOE_PREFILL = (1, 2048, 2048, 16, 16, 128, True, None)
 # tests/test_kernels.py's tolerances (atol = rtol), compared in fp32
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # Phases 11, 14 and 17: granite-3-2b, zamba2-2.7b and xlstm-350m at full width
@@ -788,7 +815,8 @@ def check_flash_attention(fa, ref, device) -> float:
     import torch
     worst = 0.0
     cases = [(c, dt) for dt in ("float32", "bfloat16") for c in FLASH_CASES]
-    cases += [(c, dt) for c in (GRANITE_PREFILL, ZAMBA_PREFILL)
+    cases += [(c, dt)
+              for c in (GRANITE_PREFILL, ZAMBA_PREFILL, OLMOE_PREFILL)
               for dt in ("bfloat16", "float32")]
     for case, dt in cases:
         causal, window = case[6], case[7]
@@ -817,15 +845,17 @@ def check_flash_attention(fa, ref, device) -> float:
 
 def serving_main_path(arch: str, n_params: int, width: tuple,
                       kernels: dict, plain: dict, device,
-                      compare_dtype=None) -> dict:
-    """Phases 11, 14 and 17: ``arch`` at full width and depth (``width`` is
-    its (n_layers, d_model, n_heads, n_kv_heads)) served through the
-    port's engine on both completion legs.  ``kernels`` maps each kernel's
-    name to (its wrapper, launches per request): every leg launches each
-    exactly that many times per request (prefill only); ``plain`` names the
-    ``*_impl`` arguments that put one request on the plain versions.
-    Returns what the run measured and each kernel's launches over both
-    legs."""
+                      compare=None) -> dict:
+    """Phases 11, 14, 17 and 20: ``arch`` at full width and depth
+    (``width`` is its (n_layers, d_model, n_heads, n_kv_heads)) served
+    through the port's engine on both completion legs.  ``kernels`` maps
+    each kernel's name to (its wrapper, launches per request): every leg
+    launches each exactly that many times per request (a prefill kernel
+    once a block, ``moe_gmm`` in prefill and every decode step); ``plain``
+    names the ``*_impl`` arguments that put one request on the plain
+    versions, and ``compare`` (default :func:`compare_with_plain`) holds
+    the kernel path against them.  Returns what the run measured and each
+    kernel's launches over both legs."""
     import torch
     from repro_torch import configs
     from repro_torch.models import model as port_model
@@ -886,8 +916,8 @@ def serving_main_path(arch: str, n_params: int, width: tuple,
             out["launches"][name] += n
             if n != per_request * SERVE_REQUESTS:
                 raise AssertionError(f"{arch} {leg} leg: {name} launched {n} "
-                                     f"times, expected {per_request} x "
-                                     f"{SERVE_REQUESTS} (prefill only)")
+                                     f"times, expected {per_request} a "
+                                     f"request x {SERVE_REQUESTS}")
         for rid, toks in rep.outputs.items():
             if len(toks) != SERVE_GEN or not all(
                     0 <= t < cfg.vocab for t in toks):
@@ -905,12 +935,9 @@ def serving_main_path(arch: str, n_params: int, width: tuple,
     log(f"serve {arch}: both legs emitted identical streams; request 0: "
         f"{streams['event'][0]}")
 
-    if compare_dtype is None:
-        out.update(compare_with_plain(arch, cfg, model, kernels, plain,
-                                      device, streams["event"][0]))
-    else:
-        out.update(compare_chaotic(arch, cfg, model, kernels, plain, device,
-                                   compare_dtype))
+    compare = compare or compare_with_plain
+    out.update(compare(arch, cfg, model, kernels, plain, device,
+                       streams["event"][0]))
     return out
 
 
@@ -927,7 +954,7 @@ def _prefill_logits(model, toks, **impls):
     import torch
     from repro_torch.models import model as port_model
     with torch.inference_mode():
-        logits, _ = port_model.apply(model, toks, mode="prefill", **impls)
+        logits, _, _ = port_model.apply(model, toks, mode="prefill", **impls)
     return logits[0, -1].float()
 
 
@@ -978,8 +1005,23 @@ def compare_with_plain(arch, cfg, model, kernels, plain, device,
     return {"logit_rel_diff": diff / scale, "plain_tokens_agree": agree}
 
 
-def compare_chaotic(arch, cfg, model, kernels, plain, device,
-                    dtype: str) -> dict:
+def _wide_copy(cfg, model, dtype: str, device):
+    """A copy of ``model`` with every weight in ``dtype`` (and its
+    config)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model as port_model
+    wide_cfg = dataclasses.replace(cfg, dtype=dtype)
+    wide = port_model.Model(wide_cfg, device)
+    weights = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, p in wide.named_parameters():
+            p.copy_(weights[name])
+    return wide_cfg, wide
+
+
+def compare_chaotic(arch, cfg, model, kernels, plain, device, stream,
+                    dtype: str = "float32") -> dict:
     """The plain-version check of a model whose bf16 forward amplifies a
     one-ulp difference to O(1) in the logits (xlstm-350m with random
     weights: a single input element of its first block moved by one bf16
@@ -990,11 +1032,9 @@ def compare_chaotic(arch, cfg, model, kernels, plain, device,
     within the kernel test's bf16 tolerance (2e-2 of its largest output).
     Then the same weights in ``dtype`` get :func:`compare_with_plain`'s
     whole-model gates, with request 0's kernel-path stream served on
-    that copy."""
-    import dataclasses
+    that copy (the bf16 ``stream`` is not held: see above)."""
     import torch
     from repro_torch.models import layers as L
-    from repro_torch.models import model as port_model
     toks = _request0_prompt(cfg, model, device)
     lr = _prefill_logits(model, toks, **plain)
     scale = float(lr.abs().max())
@@ -1037,12 +1077,7 @@ def compare_chaotic(arch, cfg, model, kernels, plain, device,
         f"alone on the plain path's input: kernel within {worst:.4g} of its "
         f"plain version's largest output (tolerance "
         f"{MLSTM_TOL['bfloat16']})")
-    wide_cfg = dataclasses.replace(cfg, dtype=dtype)
-    wide = port_model.Model(wide_cfg, device)
-    weights = dict(model.named_parameters())
-    with torch.no_grad():
-        for name, p in wide.named_parameters():
-            p.copy_(weights[name])
+    wide_cfg, wide = _wide_copy(cfg, model, dtype, device)
     stream = _serve_request0(wide_cfg, wide, device)
     out = compare_with_plain(arch, wide_cfg, wide, kernels, plain, device,
                              stream)
@@ -1053,16 +1088,17 @@ def compare_chaotic(arch, cfg, model, kernels, plain, device,
     return out
 
 
-def time_flash_attention(fa, ref, device) -> dict:
-    """Phase 12: times per call at granite's prefill shape and at zamba2's
-    shared-attention shape, bf16 (rings of four input sets, 84 and 168 MB,
-    larger than the 50 MB L2), as in phase 5, and one PyTorch call
-    computing the same function (``library_ms``:
-    ``scaled_dot_product_attention``, causal, GQA).  Returns granite's."""
+def time_flash_attention(fa, ref, device, cases) -> dict:
+    """Phases 12 and 21: times per call at each of ``cases`` (granite's
+    prefill shape and zamba2's shared-attention shape; olmoe's prefill
+    shape), bf16 (rings of four input sets, 84-168 MB, larger than the 50
+    MB L2), as in phase 5, and one PyTorch call computing the same
+    function (``library_ms``: ``scaled_dot_product_attention``, causal,
+    GQA).  Returns them by case."""
     import torch
     import torch.nn.functional as F
     out = {}
-    for case in (GRANITE_PREFILL, ZAMBA_PREFILL):
+    for case in cases:
         B, S, T, H, Hkv, D = case[:6]
         ring = [_qkv(case, torch.bfloat16, device, seed=50 + i)
                 for i in range(4)]
@@ -1090,7 +1126,7 @@ def time_flash_attention(fa, ref, device) -> dict:
             f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
         out[case] = t
         del ring, sdpa, lib
-    return out[GRANITE_PREFILL]
+    return out
 
 
 # Phase 13 shapes (b, s, h, p, n, chunk): the JAX package's kernel tests
@@ -1404,6 +1440,215 @@ def time_mlstm_chunk(mk, ref, device) -> dict:
     return t
 
 
+# Phase 19 shapes (E, C, K, N): the JAX package's kernel tests
+# (tests/test_kernels.py), ragged C, K and N (C down to 2, K = 1, N = 5),
+# then olmoe-1b-7b's expert products at decode (C = 8 slots an expert) and
+# at a 2048-token prefill (C = cap = 320): wg/wu (d 2048 -> ff 1024) and wd
+# (ff 1024 -> d 2048).
+GMM_CASES = (
+    (4, 64, 32, 48), (8, 128, 128, 256), (2, 32, 64, 32),
+    (3, 13, 40, 24), (3, 2, 40, 24), (2, 2, 7, 5), (5, 1, 1, 3),
+    (2, 17, 33, 130),
+)
+OLMOE_GMM_DECODE = ((64, 8, 2048, 1024), (64, 8, 1024, 2048))
+OLMOE_GMM_PREFILL = ((64, 320, 2048, 1024), (64, 320, 1024, 2048))
+GMM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+OLMOE_PARAMS = 6_919_096_320
+# Each MoE block's three expert products, in prefill and in each of the
+# SERVE_GEN - 1 decode steps of a request: 3 x 16 x 32.
+OLMOE_GMM_PER_REQUEST = 3 * 16 * SERVE_GEN
+MOE_BLOCK_TOL = 2e-2
+
+
+def _gmm_inputs(case, dtype, device, seed):
+    import torch
+    E, C, K, N = case
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return (torch.randn((E, C, K), generator=gen, device=device).to(dtype),
+            torch.randn((E, K, N), generator=gen, device=device).to(dtype))
+
+
+def check_moe_gmm(mg, ref, device) -> float:
+    """Phase 19: the kernel against its plain version on the card at every
+    shape, in fp32 and bf16, and bitwise repeatable.  Returns the largest
+    |kernel - plain| at olmoe's first prefill shape (bf16)."""
+    import torch
+    worst = 0.0
+    olmoe = OLMOE_GMM_DECODE + OLMOE_GMM_PREFILL
+    for dt in ("float32", "bfloat16"):
+        for case in GMM_CASES + olmoe:
+            x, w = _gmm_inputs(case, getattr(torch, dt), device,
+                               seed=sum(case))
+            got = mg.moe_gmm(x, w)
+            again = mg.moe_gmm(x, w)
+            want = ref.moe_gmm(x, w)
+            torch.cuda.synchronize()
+            tag = f"moe_gmm {dt} {case}"
+            E, C, K, N = case
+            if got.dtype != x.dtype or got.shape != (E, C, N):
+                raise AssertionError(f"{tag}: result {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{tag}: two calls differ")
+            tol = GMM_TOL[dt]
+            err = _max_abs_diff(got, want)
+            if case in olmoe:
+                rel = err / float(want.float().abs().max())
+                if not rel <= tol:
+                    raise AssertionError(f"{tag}: max|diff| / max|plain| "
+                                         f"{rel:.3g} beyond {tol}")
+                if case == OLMOE_GMM_PREFILL[0] and dt == "bfloat16":
+                    worst = err
+                log(f"{tag}: max|diff| / max|plain| {err:.3g} = {rel:.3g} "
+                    f"(tolerance {tol}), two calls bitwise equal")
+                continue
+            if not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol):
+                raise AssertionError(f"{tag}: max |kernel - plain| {err} "
+                                     f"beyond atol = rtol = {tol}")
+            log(f"{tag}: max |kernel - plain| {err:.3g} (atol = rtol = "
+                f"{tol}), two calls bitwise equal")
+    return worst
+
+
+def _moe_inputs(model, toks, **impls):
+    """Each MoE block of ``model`` and its input in request 0's prefill
+    (on ``impls``), in order, with the prefill logits."""
+    from repro_torch.models import layers as L
+    seen, hooks = [], []
+    for unit in model.units:
+        for blk in unit.blocks.values():
+            if isinstance(blk, L.MoE):
+                hooks.append(blk.register_forward_pre_hook(
+                    lambda mod, args: seen.append((mod, args[0].clone()))))
+    try:
+        logits = _prefill_logits(model, toks, **impls)
+    finally:
+        for h in hooks:
+            h.remove()
+    return logits, seen
+
+
+def compare_moe(arch, cfg, model, kernels, plain, device, stream) -> dict:
+    """The plain-version check of a MoE model (phase 20).  The router's
+    top-k is discontinuous, so a one-ulp difference in a block's input can
+    swap an expert and move that token's output by O(1).  So: request 0's
+    prefill runs on both paths; the (layer, token) top-8 sets that differ
+    between them are counted; every MoE block is held alone on the plain
+    path's input to it (the router then sees identical input: identical
+    expert choices and a bitwise-equal aux loss, and y within
+    ``MOE_BLOCK_TOL`` of its largest value); then :func:`compare_with_plain`
+    holds the whole model, in bf16 if its logit gate holds there, else on
+    an fp32 copy of the weights (with request 0's kernel-path stream
+    served on that copy)."""
+    import torch
+    toks = _request0_prompt(cfg, model, device)
+    lk, seen_k = _moe_inputs(model, toks)
+    lr, seen_r = _moe_inputs(model, toks, **plain)
+    flips, n_sets, worst = 0, 0, 0.0
+    with torch.inference_mode():
+        for (blk, xk), (_, xr) in zip(seen_k, seen_r):
+            ek = torch.sort(blk.route(xk)[1], dim=-1).values
+            er = torch.sort(blk.route(xr)[1], dim=-1).values
+            flips += int((ek != er).any(dim=-1).sum())
+            n_sets += ek.shape[0] * ek.shape[1]
+            yk, ak = blk(xr)
+            yr, ar = blk(xr, impl="ref")
+            if not torch.equal(ak, ar):
+                raise AssertionError(f"{arch}: a MoE block's router gave "
+                                     f"different aux losses on one input")
+            worst = max(worst, float((yk.float() - yr.float()).abs().max()
+                                     / yr.float().abs().max()))
+    n_blocks = len(seen_r)
+    del seen_k, seen_r
+    if not worst <= MOE_BLOCK_TOL:
+        raise AssertionError(f"{arch}: a MoE block alone on the plain path's "
+                             f"input differs from its plain version by "
+                             f"{worst:.4g} of its largest output")
+    scale = float(lr.abs().max())
+    rel = float((lk - lr).abs().max()) / scale
+    log(f"{arch} (bfloat16), request 0's prefill: {flips} of {n_sets} "
+        f"(layer, token) top-{cfg.top_k} expert sets differ between the "
+        f"kernel and plain paths; logits max |kernel - plain| = {rel:.4g} of "
+        f"max |logit| {scale:.4g}; each of the {n_blocks} MoE blocks alone "
+        f"on the plain path's input: identical expert "
+        f"choices, kernel within {worst:.4g} of its plain version's largest "
+        f"output (tolerance {MOE_BLOCK_TOL})")
+    out = {"routing_flips": flips, "routing_sets": n_sets,
+           "bf16_logit_rel_diff": rel, "block_alone_rel_err": worst}
+    if rel <= SERVE_LOGIT_RTOL:
+        out["whole_model_dtype"] = cfg.dtype
+        out.update(compare_with_plain(arch, cfg, model, kernels, plain,
+                                      device, stream))
+        return out
+    log(f"{arch}: the bf16 logit gate does not hold ({rel:.4g} > "
+        f"{SERVE_LOGIT_RTOL}); the whole model is held on an fp32 copy")
+    torch.cuda.reset_peak_memory_stats()
+    wide_cfg, wide = _wide_copy(cfg, model, "float32", device)
+    wide_stream = _serve_request0(wide_cfg, wide, device)
+    out["whole_model_dtype"] = "float32"
+    out.update(compare_with_plain(arch, wide_cfg, wide, kernels, plain,
+                                  device, wide_stream))
+    out["fp32_copy_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{arch}: fp32 copy peak allocated {out['fp32_copy_peak_gib']:.2f} "
+        f"GiB")
+    del wide
+    return out
+
+
+def time_moe_gmm(mg, ref, device) -> dict:
+    """Phase 21: times per call at olmoe's prefill shapes and its first
+    decode shape, bf16, as in phase 5 (two input sets a shape: the
+    weights alone, 268 MB, exceed the 50 MB L2, so every launch reads cold
+    data), beside one PyTorch call computing the same function
+    (``library_ms``: ``torch.bmm``, bf16 in and out).  The bound counts x
+    and w read once and the output written once, and 2 FLOP per
+    multiply-add of every expert's every slot (the reference computes the
+    zero rows of unfilled slots too).  Returns them by shape."""
+    import torch
+    out = {}
+    for case in OLMOE_GMM_PREFILL + OLMOE_GMM_DECODE[:1]:
+        E, C, K, N = case
+        ring = [_gmm_inputs(case, torch.bfloat16, device, seed=80 + i)
+                for i in range(2)]
+        t = {"ms": graph_ms(lambda i: mg.moe_gmm(*ring[i % 2]), 8),
+             "plain_ms": graph_ms(lambda i: ref.moe_gmm(*ring[i % 2]), 4),
+             "library_ms": graph_ms(lambda i: torch.bmm(*ring[i % 2]), 8),
+             "wrapper_ms": time_ms(lambda i: mg.moe_gmm(*ring[i % 2]), 40)}
+        lib_err = _max_abs_diff(torch.bmm(*ring[0]), mg.moe_gmm(*ring[0]))
+        flops = 2 * E * C * K * N
+        nbytes = 2 * (E * C * K + E * K * N + E * C * N)
+        t_ops = flops / BF16_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t["bound_ms"] = max(t_ops, t_bytes)
+        t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"moe_gmm {case} bf16: device {t['ms']:.6f} ms (plain "
+            f"{t['plain_ms']:.6f}, torch.bmm {t['library_ms']:.6f}, max "
+            f"|bmm - kernel| {lib_err:.3g}), eager wrapper "
+            f"{t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}: {flops / 1e9:.3f} GFLOP, {t_ops:.6f} ms; "
+            f"{nbytes / 1e6:.3f} MB, {t_bytes:.6f} ms)")
+        out[case] = t
+        del ring
+    return out
+
+
+def freed(arch: str, before: int) -> None:
+    """Fail unless the memory a served model held is free again: within 1
+    GiB of what was allocated before it was built, with no collection by
+    the cyclic garbage collector (nothing but reference counts may hold a
+    model once its path returns)."""
+    import torch
+    torch.cuda.synchronize()
+    now = torch.cuda.memory_allocated()
+    if now - before > 2**30:
+        raise AssertionError(f"{arch}: {(now - before) / 2**30:.2f} GiB still "
+                             f"allocated after its path returned")
+    log(f"{arch}: freed, {now / 2**30:.2f} GiB allocated")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1414,9 +1659,11 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.kernels import mlstm_chunk as mk
+    from repro_torch.kernels import moe_gmm as mg
     device = torch.device("cuda")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     outputs = build.build()
@@ -1445,36 +1692,54 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     flash_err = check_flash_attention(fa, ref, device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     serve = serving_main_path(
         "granite-3-2b", GRANITE_PARAMS, (40, 2048, 32, 8),
         {"flash_attention": (fa.flash_attention, 40)},
         {"attn_impl": "ref"}, device)
-    gc.collect()        # the engine's reference cycles still hold the model
-    torch.cuda.empty_cache()
-    flash_t = time_flash_attention(fa, ref, device)
+    freed("granite-3-2b", before)
+    flash_t = time_flash_attention(fa, ref, device,
+                                   (GRANITE_PREFILL, ZAMBA_PREFILL))
 
     ssd_err = check_mamba2_ssd(ssd, ref, device)
     torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
     zserve = serving_main_path(
         "zamba2-2.7b", ZAMBA_PARAMS, (54, 2560, 32, 32),
         {"mamba2_ssd": (ssd.mamba2_ssd, 54),
          "flash_attention": (fa.flash_attention, 9)},
         {"attn_impl": "ref", "ssd_impl": "ref"}, device)
-    gc.collect()
-    torch.cuda.empty_cache()
+    freed("zamba2-2.7b", before)
     ssd_t = time_mamba2_ssd(ssd, ref, device)
 
     mlstm_err = check_mlstm_chunk(mk, ref, device)
     torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
     xserve = serving_main_path(
         "xlstm-350m", XLSTM_PARAMS, (24, 1024, 4, 4),
         {"mlstm_chunk": (mk.mlstm_chunk, 18)}, {"mlstm_impl": "ref"},
-        device, compare_dtype="float32")
-    gc.collect()
-    torch.cuda.empty_cache()
+        device, compare=compare_chaotic)
+    freed("xlstm-350m", before)
     mlstm_t = time_mlstm_chunk(mk, ref, device)
+
+    gmm_err = check_moe_gmm(mg, ref, device)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    oserve = serving_main_path(
+        "olmoe-1b-7b", OLMOE_PARAMS, (16, 2048, 16, 16),
+        {"moe_gmm": (mg.moe_gmm, OLMOE_GMM_PER_REQUEST),
+         "flash_attention": (fa.flash_attention, 16)},
+        {"attn_impl": "ref", "moe_impl": "ref"}, device,
+        compare=compare_moe)
+    freed("olmoe-1b-7b", before)
+    gmm_t = time_moe_gmm(mg, ref, device)
+    flash_t.update(time_flash_attention(fa, ref, device, (OLMOE_PREFILL,)))
     for arch, run in (("granite-3-2b", serve), ("zamba2-2.7b", zserve),
-                      ("xlstm-350m", xserve)):
+                      ("xlstm-350m", xserve), ("olmoe-1b-7b", oserve)):
+        log(f"serve {arch}, one request alone: prefill "
+            f"{run['prefill_ms']:.3f} ms, decode "
+            f"{run['decode_ms_per_token']:.3f} ms/token")
         for leg, v in run["legs"].items():
             log(f"serve {arch} {leg}: {v['tokens_per_s']:.3f} tokens/s, p50 "
                 f"{v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms, wall "
@@ -1501,9 +1766,9 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:98",
-        "launches": (serve["launches"]["flash_attention"]
-                     + zserve["launches"]["flash_attention"]),
-        "max_abs_err": flash_err, **flash_t})
+        "launches": sum(run["launches"]["flash_attention"]
+                        for run in (serve, zserve, oserve)),
+        "max_abs_err": flash_err, **flash_t[GRANITE_PREFILL]})
     kernels.append({
         "name": "mamba2_ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
@@ -1516,10 +1781,17 @@ def main() -> int:
         "replaces": "src/repro/kernels/mlstm_chunk.py:90",
         "launches": xserve["launches"]["mlstm_chunk"],
         "max_abs_err": mlstm_err, **mlstm_t})
+    kernels.append({
+        "name": "moe_gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:48",
+        "launches": oserve["launches"]["moe_gmm"], "max_abs_err": gmm_err,
+        **gmm_t[OLMOE_GMM_PREFILL[0]]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,12 @@ number of device activities per step, the device time by kind (the
 hand-written kernels, matrix products, elementwise passes, reductions,
 copies, the rest), the activities with the most device time, and the
 host milliseconds spent inside each kind of block's forward (the sLSTM
-blocks' Python loop against the rest).  Run on a CUDA device::
+blocks' Python loop against the rest; the MoE blocks' routing, dispatch
+and expert products as a class of their own).  Run on a CUDA device::
 
     PYTHONPATH=src python -m repro_torch.bench.profile_serve \\
-        [--arch zamba2-2.7b|granite-3-2b|xlstm-350m] [--prompt-len 2048] \\
-        [--gen 32]
+        [--arch zamba2-2.7b|granite-3-2b|xlstm-350m|olmoe-1b-7b] \\
+        [--prompt-len 2048] [--gen 32]
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from ..serving import Request
 from ..serving.lm import LMAdapter
 
 # device activity kinds, by a substring of the kernel's name
-KINDS = (("mamba2_ssd", "mamba2_ssd_kernel"),
+KINDS = (("moe_gmm", "moe_gmm_"), ("mamba2_ssd", "mamba2_ssd_kernel"),
          ("mlstm_chunk", "mlstm_chunk_kernel"),
          ("flash_attention", "flash_attention_kernel"),
          ("matmul", "nvjet"), ("matmul", "gemm"), ("matmul", "sm90_xmma"),

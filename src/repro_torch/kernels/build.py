@@ -60,6 +60,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         #  stream)
         "mlstm_chunk_fwd": ((_P,) * 9 + (_I,) * 6 + (_P,), _I),
     },
+    "moe_gmm": {
+        # (x, w, out, E, C, K, N, dtype, stream)
+        "moe_gmm_fwd": ((_P,) * 3 + (_I,) * 5 + (_P,), _I),
+    },
 }
 
 _lock = threading.Lock()

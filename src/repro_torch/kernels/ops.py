@@ -17,6 +17,7 @@ from . import collective_stages as _stages
 from . import flash_attention as _flash
 from . import mamba2_ssd as _ssd
 from . import mlstm_chunk as _mlstm
+from . import moe_gmm as _gmm
 from . import ref
 
 IMPLS = (None, "cuda", "ref")
@@ -119,6 +120,19 @@ def mlstm_chunked(q, k, v, i_gate, f_gate, *, chunk: int, init=None,
 # and the stepwise oracle.
 mlstm_decode_step = ref.mlstm_decode_step
 mlstm_sequential = ref.mlstm_sequential
+
+
+# ---------------------------------------------------------------------------
+# MoE expert matmul
+# ---------------------------------------------------------------------------
+def moe_gmm(x, w, *, impl: Optional[str] = None) -> torch.Tensor:
+    """Batched expert matmul: x (E, C, K) × w (E, K, N) -> (E, C, N).  The
+    Hopper kernel for CUDA tensors (its plain version on the CPU), or with
+    ``impl="ref"`` the plain fp32 product on any device."""
+    _check_impl("moe_gmm", impl)
+    if impl == "ref":
+        return ref.moe_gmm(x, w)
+    return _gmm.moe_gmm(x, w)
 
 
 # ---------------------------------------------------------------------------

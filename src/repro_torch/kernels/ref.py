@@ -13,7 +13,8 @@ the plain version of the attention kernel), and of the Mamba2 SSD ones
 ``ssd_sequential``, the stepwise oracle; ``ssd_decode_step``, the decode
 path), and of the mLSTM ones (``mlstm_chunked``, the plain version of the
 ``mlstm_chunk`` kernel; ``mlstm_sequential``, the stepwise oracle;
-``mlstm_decode_step``, the decode path).
+``mlstm_decode_step``, the decode path), and of the MoE ones (``moe_gmm``,
+the plain version of the ``moe_gmm`` kernel; ``gmm``, the ragged oracle).
 """
 
 from __future__ import annotations
@@ -450,3 +451,33 @@ def mlstm_sequential(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       i_gate[:, t], f_gate[:, t])
         ys.append(yt)
     return torch.stack(ys, dim=1).to(q.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# Grouped matmul over expert segments (MoE)
+# ---------------------------------------------------------------------------
+def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched expert matmul, the plain version of the ``moe_gmm`` kernel:
+    x (E, C, K) times w (E, K, N), expert by expert, in fp32 (``x.float()``
+    and ``w.float()``), cast once to x's dtype.  On the card the product
+    stays full fp32: PyTorch's ``allow_tf32`` for matmuls is False by
+    default and this function relies on it (TF32 would keep ~3 decimal
+    digits)."""
+    return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor,
+        group_sizes: torch.Tensor) -> torch.Tensor:
+    """Ragged grouped matmul (``repro/kernels/ref.py`` ``gmm``): rows of
+    ``x`` are sorted by expert and ``group_sizes[e]`` consecutive rows use
+    ``w[e]``.  x (T, K), w (E, K, N), group_sizes (E,) summing to T;
+    returns (T, N) in x's dtype, computed in fp32.  An oracle for test
+    sizes only: it gathers one (K, N) weight per row."""
+    T, E = x.shape[0], w.shape[0]
+    sizes = group_sizes.to(torch.int64)
+    starts = torch.cumsum(sizes, 0) - sizes
+    row = torch.arange(T, device=x.device)
+    eid = (row[:, None] >= starts[None, :]).sum(dim=1) - 1
+    eid = eid.clamp(0, E - 1)
+    return torch.einsum("tk,tkn->tn", x.float(),
+                        w[eid].float()).to(x.dtype)

@@ -18,6 +18,8 @@ It runs on the CUDA device unless ``--device`` names another::
       --scale smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
       --scale smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+      --scale smoke --device cpu
 """
 
 from __future__ import annotations
@@ -56,6 +58,10 @@ def main(argv=None) -> int:
     p.add_argument("--mlstm-impl", default=None, choices=["cuda", "ref"],
                    help="prefill scan of mLSTM blocks: the Hopper kernel "
                         "(default) or its plain version")
+    p.add_argument("--moe-impl", default=None, choices=["cuda", "ref"],
+                   help="expert products of MoE blocks, prefill and "
+                        "decode: the Hopper kernel (default) or its plain "
+                        "version")
     args = p.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.scale == "smoke" \
@@ -68,7 +74,8 @@ def main(argv=None) -> int:
     adapter = LMAdapter(cfg, params, prompt_len=args.prompt_len,
                         gen_len=args.gen, device=args.device,
                         attn_impl=args.attn_impl, ssd_impl=args.ssd_impl,
-                        mlstm_impl=args.mlstm_impl)
+                        mlstm_impl=args.mlstm_impl,
+                        moe_impl=args.moe_impl)
     adapter.warmup()
 
     engine = ServingEngine(adapter, slots=args.slots,

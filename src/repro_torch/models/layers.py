@@ -1,17 +1,14 @@
 """Neural network blocks of the port: norms, RoPE, GQA attention, MLP, the
-Mamba2 (SSD) block, the xLSTM mLSTM and sLSTM blocks and Zamba2's shared
-attention block — the counterparts of ``repro/models/layers.py``
-(``norm_*``, ``rope_*``, ``attn_*``, ``mlp_*``, ``mamba2_*``, ``mlstm_*``,
-``slstm_*``, ``shared_attn_*``).
+top-k mixture of experts, the Mamba2 (SSD) block, the xLSTM mLSTM and
+sLSTM blocks and Zamba2's shared attention block — the counterparts of
+``repro/models/layers.py`` (``norm_*``, ``rope_*``, ``attn_*``, ``mlp_*``,
+``moe_*``, ``mamba2_*``, ``mlstm_*``, ``slstm_*``, ``shared_attn_*``).
 
 Each block is an ``nn.Module`` whose weights keep the JAX package's
 orientation ``(d_in, d_out)``, applied as ``x @ w``, so the reference's
 parameters load without transposes (:func:`repro_torch.models.model
 .params_from_reference`).  Numerics policy as in the reference: weights and
 activations in ``cfg.dtype``; norms and RoPE in fp32, cast back.
-
-MoE is not ported yet: :func:`check_supported` raises for a config that
-uses it.
 """
 
 from __future__ import annotations
@@ -24,23 +21,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from .config import (ModelConfig, ATTN, SWA, MLP, MAMBA2, MLSTM, SLSTM,
-                     SHARED_ATTN)
+from .config import ModelConfig
 
 Cache = Optional[Dict[str, torch.Tensor]]
-SUPPORTED = (ATTN, SWA, MLP, MAMBA2, MLSTM, SLSTM, SHARED_ATTN)
 NEG = -1e30         # the caches' stand-in for an mLSTM stabiliser of -inf
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first block kind of
-    ``cfg.pattern`` that the port does not have yet."""
-    for layer in cfg.pattern:
-        for kind in layer:
-            if kind not in SUPPORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: block kind {kind!r} is not ported to "
-                    f"repro_torch yet (ported: {', '.join(SUPPORTED)})")
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -172,6 +156,114 @@ class MLPBlock(nn.Module):
         else:
             h = F.gelu(x @ self.wu, approximate="tanh")
         return h @ self.wd
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, capacity-based dispatch)
+# ---------------------------------------------------------------------------
+class MoE(nn.Module):
+    """Top-k mixture of experts with the reference's grouped, gather-only
+    dispatch into a fixed-capacity expert layout (``moe_apply``): one
+    dispatch group per sequence (G = B), a fp32 router, softmax, top-k with
+    the gates renormalised, the Switch-style load-balancing loss, capacity
+    ``cap = min(max(8, ceil8(int(Tk / E · capacity_factor))), Tk)`` for Tk
+    = S · k routed rows per group, overflow rows dropped.  The three expert
+    products — ``silu(xe @ wg) * (xe @ wu)``, then ``@ wd`` — run on the
+    (E, G · cap, ·) layout through ``ops.moe_gmm`` (the Hopper kernel on
+    the card), in prefill and in decode; routing, sorts and gathers stay
+    plain torch, as they are jnp in the reference.
+
+    Parity points: ``lax.top_k`` breaks ties toward the lower index and
+    ``jnp.argsort`` is stable, so top-k is a stable descending sort and
+    both argsorts are stable; invalid capacity slots gather a clipped row
+    and are zeroed by a multiply in the activation dtype, as the reference
+    zeroes them; the k weighted expert rows of a token are summed in fp32
+    and rounded once, as ``jnp.sum`` upcasts bf16."""
+
+    def __init__(self, cfg: ModelConfig, device=None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        d, ff, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+        dt = cfg.activation_dtype
+        self.router = _param((d, E), torch.float32, device)
+        self.wg = _param((E, d, ff), dt, device)
+        self.wu = _param((E, d, ff), dt, device)
+        self.wd = _param((E, ff, d), dt, device)
+        # the reference draws the expert weights at fan-in d and ff, not
+        # shape[0] = E
+        self.init_fan_in = {"wg": d, "wu": d, "wd": ff}
+
+    def capacity(self, tokens: int) -> int:
+        """Slots per expert and group for ``tokens`` tokens a group."""
+        cfg = self.cfg
+        Tk = tokens * cfg.top_k
+        cap = int(Tk / cfg.n_experts * cfg.capacity_factor)
+        cap = max(8, -(-cap // 8) * 8)
+        return min(cap, Tk)
+
+    def route(self, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Router softmax and top-k: (gates (G, Tg, k) fp32 renormalised,
+        expert ids (G, Tg, k) int64, aux loss) for x (G, Tg, d)."""
+        E, k = self.cfg.n_experts, self.cfg.top_k
+        probs = torch.softmax(x.float() @ self.router, dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate_vals, eidx = top.values[..., :k], top.indices[..., :k]
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+        me = probs.mean(dim=(0, 1))
+        ce = F.one_hot(eidx[..., 0], E).float().mean(dim=(0, 1))
+        aux = E * (me * ce).sum()
+        return gate_vals, eidx, aux
+
+    def forward(self, x: torch.Tensor, *, impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (y (B, S, d), aux loss fp32 scalar)."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        E, k = cfg.n_experts, cfg.top_k
+        G, Tg, Tk = B, S, S * k
+        xt = x.reshape(G, Tg, d)
+        gate_vals, eidx, aux = self.route(xt)
+        cap = self.capacity(Tg)
+
+        # dispatch: expert e's slot c holds sorted row starts[e] + c
+        flat_e = eidx.reshape(G, Tk)
+        order = torch.argsort(flat_e, dim=-1, stable=True)
+        sorted_e = torch.gather(flat_e, 1, order)
+        tok_of = order // k
+        experts = torch.arange(E, device=x.device).expand(G, E).contiguous()
+        starts = torch.searchsorted(sorted_e, experts, side="left")
+        counts = torch.diff(starts, dim=-1,
+                            append=torch.full((G, 1), Tk, device=x.device))
+        slots = torch.arange(cap, device=x.device)
+        slot_rows = (starts[:, :, None] + slots).clamp(0, Tk - 1)
+        slot_valid = slots < counts[:, :, None]                 # (G, E, cap)
+        src_tok = torch.gather(tok_of, 1, slot_rows.reshape(G, E * cap))
+        xe = torch.gather(xt, 1, src_tok[..., None].expand(G, E * cap, d))
+        xe = xe * slot_valid.reshape(G, E * cap, 1).to(x.dtype)
+
+        # the expert products on (E, G·cap, ·)
+        xe = xe.reshape(G, E, cap, d).transpose(0, 1).reshape(E, G * cap, d)
+        xe = xe.contiguous()
+        h = _silu(ops.moe_gmm(xe, self.wg, impl=impl)) \
+            * ops.moe_gmm(xe, self.wu, impl=impl)
+        ye = ops.moe_gmm(h, self.wd, impl=impl)                  # (E, G·cap, d)
+        ye = ye.reshape(E, G, cap, d).transpose(0, 1).reshape(G, E * cap, d)
+
+        # return path: row r (sorted) sits in slot sorted_e[r]·cap + (r -
+        # starts[sorted_e[r]]) when within capacity; token t collects its
+        # k rows through the inverse permutation
+        slot_of_row = torch.arange(Tk, device=x.device) \
+            - torch.gather(starts, 1, sorted_e)
+        keep = slot_of_row < cap
+        buf_pos = (sorted_e * cap + slot_of_row).clamp(0, E * cap - 1)
+        inv = torch.argsort(order, dim=-1, stable=True)
+        row_pos = torch.gather(buf_pos, 1, inv)
+        row_keep = torch.gather(keep, 1, inv)
+        contrib = torch.gather(ye, 1, row_pos[..., None].expand(G, Tk, d))
+        wgt = (gate_vals.reshape(G, Tk) * row_keep.float()).to(x.dtype)
+        y = (contrib * wgt[..., None]).reshape(G, Tg, k, d).float().sum(2)
+        return y.to(x.dtype).reshape(B, S, d), aux
 
 
 # ---------------------------------------------------------------------------

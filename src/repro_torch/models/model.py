@@ -1,7 +1,7 @@
 """Composable block-pattern language model — the port of
-``repro/models/model.py`` for the block kinds ported so far (attention,
-sliding-window attention, MLP, Mamba2, the xLSTM mLSTM and sLSTM blocks
-and Zamba2's shared attention).
+``repro/models/model.py`` for every block kind of the JAX package
+(attention, sliding-window attention, MLP, mixture of experts, Mamba2, the
+xLSTM mLSTM and sLSTM blocks and Zamba2's shared attention).
 
 A model is ``cfg.pattern`` (a repeating unit of layers, each a tuple of
 blocks) applied ``cfg.repeats`` times, pre-norm with residual connections.
@@ -14,7 +14,9 @@ own: the one :class:`~repro_torch.models.layers.SharedAttention` of the
 model (the reference's ``params["shared"]``) is handed to every unit,
 with the embedding output ``x0``.
 
-Three entry modes (:func:`apply`):
+Three entry modes (:func:`apply`, which returns ``(logits, cache, aux)``
+as the reference's does; ``aux`` is the MoE blocks' load-balancing loss
+summed over the model, 0 without MoE):
 
 * ``train``   — full sequence, logits for every position;
 * ``prefill`` — full sequence, the cache filled, logits for the last
@@ -42,7 +44,7 @@ from torch import nn
 
 from ..core.mesh import resolve_device
 from . import layers as L
-from .config import (ModelConfig, ATTN, SWA, MLP, MAMBA2, MLSTM, SLSTM,
+from .config import (ModelConfig, ATTN, SWA, MLP, MOE, MAMBA2, MLSTM, SLSTM,
                      SHARED_ATTN)
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -78,18 +80,25 @@ class Unit(nn.Module):
                 self.blocks[name] = L.MLSTM(cfg, device)
             elif kind == SLSTM:
                 self.blocks[name] = L.SLSTM(cfg, device)
-            else:
+            elif kind == MOE:
+                self.blocks[name] = L.MoE(cfg, device)
+            elif kind == MLP:
                 self.blocks[name] = L.MLPBlock(cfg, device)
+            else:               # as the reference's _block_init
+                raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
 
     def forward(self, x: torch.Tensor, *, x0: torch.Tensor,
                 shared: Optional[L.SharedAttention], angles: torch.Tensor,
                 mode: str,
                 cache: Optional[Dict[str, Dict[str, torch.Tensor]]],
                 cache_index: Optional[int], attn_impl: Optional[str],
-                ssd_impl: Optional[str],
-                mlstm_impl: Optional[str]) -> torch.Tensor:
+                ssd_impl: Optional[str], mlstm_impl: Optional[str],
+                moe_impl: Optional[str]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (x, the unit's MoE aux loss, fp32)."""
         cfg = self.cfg
         decode = mode == "decode"
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for name, norm_name, kind in _block_names(cfg):
             c = cache.get(name) if cache is not None else None
             if kind == SHARED_ATTN:
@@ -100,6 +109,9 @@ class Unit(nn.Module):
             xin = self.blocks[norm_name](x)
             if kind == MLP:
                 h = self.blocks[name](xin)
+            elif kind == MOE:
+                h, a = self.blocks[name](xin, impl=moe_impl)
+                aux = aux + a
             elif kind == MAMBA2:
                 h = self.blocks[name](xin, cache=c, decode=decode,
                                       impl=ssd_impl)
@@ -115,7 +127,7 @@ class Unit(nn.Module):
                     cache_index=cache_index if decode else None,
                     impl=attn_impl)
             x = x + h
-        return x
+        return x, aux
 
 
 class Model(nn.Module):
@@ -126,7 +138,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
-        L.check_supported(cfg)
         self.cfg = cfg
         device = resolve_device(device)
         dt = cfg.activation_dtype
@@ -159,8 +170,9 @@ class Model(nn.Module):
                 cache_index: Optional[int] = None,
                 attn_impl: Optional[str] = None,
                 ssd_impl: Optional[str] = None,
-                mlstm_impl: Optional[str] = None
-                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+                mlstm_impl: Optional[str] = None,
+                moe_impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
         cfg = self.cfg
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -185,35 +197,39 @@ class Model(nn.Module):
         x0 = x
         if mode == "prefill" and cache is None:
             cache = init_cache(cfg, B, S, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for r, unit in enumerate(self.units):
             unit_cache = None if mode == "train" else {
                 name: {n: t[r] for n, t in c.items()}
                 for name, c in cache.items()}
-            x = unit(x, x0=x0, shared=self.shared, angles=angles, mode=mode,
-                     cache=unit_cache, cache_index=cache_index,
-                     attn_impl=attn_impl, ssd_impl=ssd_impl,
-                     mlstm_impl=mlstm_impl)
+            x, a = unit(x, x0=x0, shared=self.shared, angles=angles,
+                        mode=mode, cache=unit_cache, cache_index=cache_index,
+                        attn_impl=attn_impl, ssd_impl=ssd_impl,
+                        mlstm_impl=mlstm_impl, moe_impl=moe_impl)
+            aux = aux + a
         if mode == "prefill":
             x = x[:, -1:]
-        return self._head(x), (None if mode == "train" else cache)
+        return self._head(x), (None if mode == "train" else cache), aux
 
 
 def apply(model: Model, batch: Mapping[str, torch.Tensor], *,
           mode: str = "train", cache: Optional[Cache] = None,
           cache_index: Optional[int] = None,
           attn_impl: Optional[str] = None, ssd_impl: Optional[str] = None,
-          mlstm_impl: Optional[str] = None
-          ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Forward pass; returns ``(logits, cache)``.  ``attn_impl`` is handed
-    to ``ops.flash_attention``, ``ssd_impl`` to ``ops.mamba2_ssd`` and
-    ``mlstm_impl`` to ``ops.mlstm_chunked`` (None or "cuda": the kernel on
-    the card; "ref": its plain version).  Prefill without a cache
+          mlstm_impl: Optional[str] = None, moe_impl: Optional[str] = None
+          ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
+    """Forward pass; returns ``(logits, cache, aux)``, ``aux`` the MoE
+    load-balancing loss summed over blocks (fp32 scalar).  ``attn_impl``
+    is handed to ``ops.flash_attention``, ``ssd_impl`` to
+    ``ops.mamba2_ssd``, ``mlstm_impl`` to ``ops.mlstm_chunked`` and
+    ``moe_impl`` to ``ops.moe_gmm`` (None or "cuda": the kernel on the
+    card; "ref": its plain version).  Prefill without a cache
     allocates one of length S; with one, it fills positions [0, S) of it
     and every recurrent block's state (from the zero state, whatever the
     cache held)."""
     return model(batch, mode=mode, cache=cache, cache_index=cache_index,
                  attn_impl=attn_impl, ssd_impl=ssd_impl,
-                 mlstm_impl=mlstm_impl)
+                 mlstm_impl=mlstm_impl, moe_impl=moe_impl)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
@@ -287,7 +303,9 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     scale 1 and bias 0; in a Mamba2 block ``dt_bias``, ``A_log`` and
     ``conv_b`` 0, ``D`` and ``gn`` 1, ``conv_w`` ``N(0, 0.1²)``; in an
     mLSTM block ``bi`` 0 and ``bf`` 3, in an sLSTM block ``bf`` 1, the
-    other gate biases 0 and the recurrent ``r*`` at fan-in dh.  (The JAX
+    other gate biases 0 and the recurrent ``r*`` at fan-in dh; in a MoE
+    block the router at fan-in d, the expert ``wg``/``wu`` at fan-in d and
+    ``wd`` at fan-in ``moe_d_ff``.  (The JAX
     package draws the same distributions from ``jax.random``, so the
     numbers differ.)"""
     model = Model(cfg, device)
@@ -354,3 +372,17 @@ def params_from_reference(cfg: ModelConfig, np_params: Mapping[str, Any], *,
 
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def active_param_count(model: Model) -> int:
+    """Parameters touched per token (``repro/models/model.py``
+    ``active_param_count``): every MoE block's expert weights scaled by
+    top_k / n_experts, its router and everything else counted whole."""
+    cfg = model.cfg
+    total = 0
+    for name, p in model.named_parameters():
+        size = p.numel()
+        if "_moe" in name and not name.endswith("router"):
+            size = size * cfg.top_k // max(cfg.n_experts, 1)
+        total += size
+    return total

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -60,6 +61,22 @@ from .queue import RequestQueue
 from .request import Request, RequestState
 
 __all__ = ["ServingEngine"]
+
+
+def _weak(method: Callable[..., Any]) -> Callable[..., Any]:
+    """``method`` called through a weak reference to its engine.  The
+    runtime's task graph is cyclic (tasks, their event counters and the
+    runtime reference one another), so it lives until the cyclic collector
+    runs; a task body bound to the engine would keep the engine, its
+    adapter and the adapter's model alive that long after :meth:`run`
+    returns.  The engine is alive whenever one of its tasks runs: ``run``
+    holds it until the last task has finished."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args: Any) -> Any:
+        return ref()(*args)
+
+    return call
 
 
 class ServingEngine:
@@ -207,15 +224,17 @@ class ServingEngine:
 
     def _finish(self, req: Request) -> None:
         """Retire the request — but only if every token actually
-        emitted.  A failed micro-step force-releases its dependents
-        (so the graph drains instead of hanging), which means this task
-        can run on an incomplete request: leave it in flight and let
-        the failure sweep of ``_handle_failure`` evict + re-admit it."""
+        emitted — and drop its decode state (the KV cache).  A failed
+        micro-step force-releases its dependents (so the graph drains
+        instead of hanging), which means this task can run on an
+        incomplete request: leave it in flight and let the failure sweep
+        of ``_handle_failure`` evict + re-admit it."""
         with self._lock:
             if req.state is RequestState.DECODE \
                     and len(req.tokens) == req.gen_len:
                 req.to(RequestState.DONE)
                 req.finished_at = time.monotonic() - self._t0
+                req.cache = None
                 self.active.pop(req.rid, None)
 
     # -- scheduling ---------------------------------------------------------
@@ -271,14 +290,14 @@ class ServingEngine:
             # at device completion; successive decode steps depend only
             # on the chain (WAW) — detok never sits on the device chain.
             slot = (req.chain, "tok", step)
-            rt.submit(self._device_step, req, step,
+            rt.submit(_weak(self._device_step), req, step,
                       inout=[req.chain], out=[slot],
                       name=f"{kind}:{req.rid}@{step}")
-            rt.submit(self._detok_task, req, step, in_=[slot],
+            rt.submit(_weak(self._detok_task), req, step, in_=[slot],
                       inout=[req.detok_chain],
                       name=f"detok:{req.rid}@{step}")
         else:
-            rt.submit(self._device_step, req, step,
+            rt.submit(_weak(self._device_step), req, step,
                       inout=[req.chain], name=f"{kind}:{req.rid}@{step}")
         req.submitted_steps = step + 1
         if req.submitted_steps == req.gen_len:
@@ -287,7 +306,7 @@ class ServingEngine:
             # every emitted token.
             chains = [req.chain] if self.completion == "blocking" \
                 else [req.chain, req.detok_chain]
-            rt.submit(self._finish, req, inout=chains,
+            rt.submit(_weak(self._finish), req, inout=chains,
                       name=f"finish:{req.rid}")
 
     def _handle_failure(self, err: BaseException) -> None:

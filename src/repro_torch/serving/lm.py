@@ -5,7 +5,8 @@ Each request runs batch-1 greedy decoding with its own fixed-size
 ``(prompt_len + gen_len)`` cache — k/v of every attention block, the SSD
 state and conv tail of every Mamba2 block, the (C, n, m) of every mLSTM
 block and the (c, n, h, m) of every sLSTM block — which prefill fills in
-place and each decode step extends in place.  One card holds the model whole, so there
+place and each decode step extends in place.  (MoE blocks keep no
+state.)  One card holds the model whole, so there
 is no mesh and no sharding policy.
 
 Device work stays un-synchronised, and the adapter hands the engine the
@@ -48,14 +49,16 @@ class LMAdapter:
     """Batch-1 greedy-decode adapter over a :class:`repro_torch.models
     .model.Model` (``params``) on ``device`` (the CUDA device unless
     named).  ``attn_impl`` goes to the prefill attention, ``ssd_impl`` to
-    the prefill SSD scan and ``mlstm_impl`` to the prefill mLSTM scan
-    (None: the Hopper kernel on the card; "ref": its plain version)."""
+    the prefill SSD scan, ``mlstm_impl`` to the prefill mLSTM scan and
+    ``moe_impl`` to the MoE expert products of prefill and decode (None:
+    the Hopper kernel on the card; "ref": its plain version)."""
 
     def __init__(self, cfg: ModelConfig, params: model_lib.Model, *,
                  prompt_len: int, gen_len: int, device=None,
                  attn_impl: Optional[str] = None,
                  ssd_impl: Optional[str] = None,
                  mlstm_impl: Optional[str] = None,
+                 moe_impl: Optional[str] = None,
                  prompt_tokens: Optional[Callable[[Request],
                                                   torch.Tensor]] = None
                  ) -> None:
@@ -72,11 +75,18 @@ class LMAdapter:
         self.attn_impl = attn_impl
         self.ssd_impl = ssd_impl
         self.mlstm_impl = mlstm_impl
-        self.prompt_tokens = prompt_tokens or self._seeded_prompt
+        self.moe_impl = moe_impl
+        self._prompt_tokens = prompt_tokens
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)     # the weights are ready
 
-    def _seeded_prompt(self, req: Request) -> torch.Tensor:
+    def prompt_tokens(self, req: Request) -> torch.Tensor:
+        """The prompt of ``req``: from ``prompt_tokens=`` when given, else
+        seeded by ``req.prompt``.  (A method: one of the adapter's bound
+        methods stored on the adapter would be a reference cycle, alive
+        until the cyclic collector runs.)"""
+        if self._prompt_tokens is not None:
+            return self._prompt_tokens(req)
         rng = np.random.default_rng(int(req.prompt))
         return torch.from_numpy(
             rng.integers(0, self.cfg.vocab, (1, self.prompt_len)))
@@ -115,10 +125,10 @@ class LMAdapter:
             tokens = self.prompt_tokens(req).to(self.device)
             cache = model_lib.init_cache(self.cfg, 1, self.total_len,
                                          device=self.device)
-            logits, cache = model_lib.apply(
+            logits, cache, _ = model_lib.apply(
                 self.model, {"tokens": tokens}, mode="prefill", cache=cache,
                 attn_impl=self.attn_impl, ssd_impl=self.ssd_impl,
-                mlstm_impl=self.mlstm_impl)
+                mlstm_impl=self.mlstm_impl, moe_impl=self.moe_impl)
             handle, tok = self._token(logits)
         return handle, (stream, cache, tok)
 
@@ -126,9 +136,10 @@ class LMAdapter:
                step: int) -> Tuple[Any, Any]:
         stream, cache, prev = state
         with self._on(stream), torch.inference_mode():
-            logits, cache = model_lib.apply(
+            logits, cache, _ = model_lib.apply(
                 self.model, {"tokens": prev[:, None]}, mode="decode",
-                cache=cache, cache_index=self.prompt_len + step - 1)
+                cache=cache, cache_index=self.prompt_len + step - 1,
+                moe_impl=self.moe_impl)
             handle, tok = self._token(logits)
         return handle, (stream, cache, tok)
 

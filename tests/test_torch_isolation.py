@@ -97,11 +97,13 @@ def test_port_imports_no_jax_and_no_reference_package(isolated):
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.kernels.mamba2_ssd",
                 "repro_torch.kernels.mlstm_chunk",
+                "repro_torch.kernels.moe_gmm",
                 "repro_torch.bench.profile_serve",
                 "repro_torch.models.model", "repro_torch.models.layers",
                 "repro_torch.configs.granite_3_2b",
                 "repro_torch.configs.zamba2_2p7b",
                 "repro_torch.configs.xlstm_350m",
+                "repro_torch.configs.olmoe_1b_7b",
                 "repro_torch.serving.engine", "repro_torch.serving.lm",
                 "repro_torch.serving.synthetic", "repro_torch.launch.serve"):
         assert mod in out["modules"]

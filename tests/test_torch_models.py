@@ -28,7 +28,9 @@
   absolute plus 2e-2 relative, for the reason stated there.
 * ``init`` draws the Mamba2 and xLSTM leaves as the reference's
   ``mamba2_init``, ``mlstm_init`` and ``slstm_init``.
-* A config whose pattern holds an unported block kind raises.
+* A config whose pattern holds a kind that is no block kind raises, as
+  the reference's ``_unit_apply`` does.  (Every block kind is ported; the
+  MoE models are held in ``tests/test_torch_moe.py``.)
 """
 
 import dataclasses
@@ -45,7 +47,7 @@ from repro.models import layers as jax_layers
 from repro.models import model as jax_model
 from repro_torch import configs
 from repro_torch.models import config, inputs, layers
-from repro_torch.models.config import MAMBA2, MLSTM, MOE, SLSTM
+from repro_torch.models.config import MAMBA2
 from repro_torch.models import model as port_model
 
 B, S, DECODE_STEPS = 2, 12, 4
@@ -116,14 +118,14 @@ def test_params_from_reference_holds_every_leaf(pair):
 def test_train_logits_match(pair):
     dtype, jcfg, params, pcfg, model = pair
     toks = np.random.default_rng(1).integers(0, jcfg.vocab, (B, S))
-    want, _, _ = jax_model.apply(params, jcfg,
-                                 {"tokens": jnp.asarray(toks, jnp.int32)},
-                                 mode="train")
+    want, _, want_aux = jax_model.apply(
+        params, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)}, mode="train")
     with torch.no_grad():
-        got, cache = port_model.apply(model,
-                                      {"tokens": torch.from_numpy(toks)},
-                                      mode="train")
+        got, cache, aux = port_model.apply(model,
+                                           {"tokens": torch.from_numpy(toks)},
+                                           mode="train")
     assert cache is None and got.shape == (B, S, jcfg.vocab)
+    assert float(aux) == float(want_aux) == 0.0     # no MoE block
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
 
 
@@ -143,7 +145,7 @@ def test_prefill_and_decode_match(pair):
     jcache = jax_model.pad_cache(jcfg, jcache, total)
     cache = port_model.init_cache(pcfg, B, total, device="cpu")
     with torch.no_grad():
-        got, cache2 = port_model.apply(model,
+        got, cache2, _ = port_model.apply(model,
                                        {"tokens": torch.from_numpy(toks)},
                                        mode="prefill", cache=cache)
     assert cache2 is cache and got.shape == (B, 1, jcfg.vocab)
@@ -158,7 +160,7 @@ def test_prefill_and_decode_match(pair):
         step = {"tokens": jnp.asarray(forced[i][:, None], jnp.int32)}
         want, jcache = decode(params, jcache, step, jnp.int32(S + i))
         with torch.no_grad():
-            got, cache = port_model.apply(
+            got, cache, _ = port_model.apply(
                 model, {"tokens": torch.from_numpy(forced[i][:, None])},
                 mode="decode", cache=cache, cache_index=S + i)
         assert got.shape == (B, 1, jcfg.vocab)
@@ -171,7 +173,7 @@ def test_prefill_without_cache_allocates_one():
     toks = inputs.make_batch(cfg, batch=1, seq=6, kind="prefill",
                              device="cpu")
     with torch.no_grad():
-        logits, cache = port_model.apply(model, toks, mode="prefill")
+        logits, cache, _ = port_model.apply(model, toks, mode="prefill")
     assert logits.shape == (1, 1, cfg.vocab) and torch.isfinite(logits).all()
     k = cache["L0_0_attn"]["k"]
     assert k.shape == (cfg.repeats, 1, 6, cfg.n_kv_heads, cfg.head_dim)
@@ -192,28 +194,18 @@ def test_init_is_seeded_and_scaled():
     assert torch.equal(a.final_norm.scale, torch.ones(cfg.d_model))
 
 
-def _with_pattern(arch, pattern):
-    """``arch``'s smoke and full configs with another block pattern."""
-    def get(getter):
-        return dataclasses.replace(getattr(configs, getter)(arch),
-                                   pattern=pattern)
-    return get
-
-
-@pytest.mark.parametrize("arch,kind", [
-    (_with_pattern("zamba2-2.7b", ((MAMBA2,), (MOE,)) * 3), "moe"),
-    (_with_pattern("xlstm-350m", ((MLSTM,), (MLSTM,), (MOE,), (SLSTM,))),
-     "moe"),
-    ("olmoe-1b-7b", "moe"), ("mixtral-8x22b", "moe")])
-def test_unported_block_kind_raises(arch, kind):
-    """A config with an unported kind raises; zamba2 and xlstm are ported,
-    so their cases put a MoE block into their patterns."""
-    get = arch if callable(arch) else (
-        lambda getter: getattr(configs, getter)(arch))
-    with pytest.raises(NotImplementedError, match=repr(kind)):
-        port_model.Model(get("smoke"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        layers.check_supported(get("get"))
+def test_unknown_block_kind_raises():
+    """A pattern with a kind that is no block kind raises ``ValueError``
+    naming it, as the reference's ``_unit_apply`` does (``model.py``'s
+    ``raise ValueError(kind)``)."""
+    pattern = ((MAMBA2,), ("conv",)) * 3
+    jcfg = dataclasses.replace(jax_configs.smoke("zamba2-2.7b"),
+                               pattern=pattern)
+    with pytest.raises(ValueError, match="conv"):
+        jax_model.init(jcfg, jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(configs.smoke("zamba2-2.7b"), pattern=pattern)
+    with pytest.raises(ValueError, match="unknown block kind 'conv'"):
+        port_model.Model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-15b", "hubert-xlarge"])
@@ -235,7 +227,7 @@ def test_layernorm_gelu_archs_match(arch):
         pb = {"tokens": torch.from_numpy(toks)}
     want, _, _ = jax_model.apply(params, jcfg, jb, mode="train")
     with torch.no_grad():
-        got, _ = port_model.apply(model, pb, mode="train")
+        got, _, _ = port_model.apply(model, pb, mode="train")
     np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-4, rtol=1e-4)
 
 
@@ -302,8 +294,8 @@ def test_zamba2_train_logits_match(zamba):
                                  {"tokens": jnp.asarray(toks, jnp.int32)},
                                  mode="train")
     with torch.no_grad():
-        got, _ = port_model.apply(model, {"tokens": torch.from_numpy(toks)},
-                                  mode="train")
+        got, _, _ = port_model.apply(
+            model, {"tokens": torch.from_numpy(toks)}, mode="train")
     assert got.shape == (B, ZS, jcfg.vocab)
     np.testing.assert_allclose(_f32(got), _f32(want), **_ztol(dtype))
 
@@ -324,7 +316,7 @@ def test_zamba2_prefill_and_decode_match(zamba):
     jcache = jax_model.pad_cache(jcfg, jcache, total)
     cache = port_model.init_cache(pcfg, B, total, device="cpu")
     with torch.no_grad():
-        got, cache2 = port_model.apply(model,
+        got, cache2, _ = port_model.apply(model,
                                        {"tokens": torch.from_numpy(toks)},
                                        mode="prefill", cache=cache)
     assert cache2 is cache
@@ -344,7 +336,7 @@ def test_zamba2_prefill_and_decode_match(zamba):
         step = {"tokens": jnp.asarray(forced[i][:, None], jnp.int32)}
         want, jcache = decode(params, jcache, step, jnp.int32(ZS + i))
         with torch.no_grad():
-            got, cache = port_model.apply(
+            got, cache, _ = port_model.apply(
                 model, {"tokens": torch.from_numpy(forced[i][:, None])},
                 mode="decode", cache=cache, cache_index=ZS + i)
         np.testing.assert_allclose(_f32(got), _f32(want), **_ztol(dtype))
@@ -462,8 +454,8 @@ def test_xlstm_train_logits_match(xlstm):
                                  {"tokens": jnp.asarray(toks, jnp.int32)},
                                  mode="train")
     with torch.no_grad():
-        got, _ = port_model.apply(model, {"tokens": torch.from_numpy(toks)},
-                                  mode="train")
+        got, _, _ = port_model.apply(
+            model, {"tokens": torch.from_numpy(toks)}, mode="train")
     assert got.shape == (B, XS, jcfg.vocab)
     np.testing.assert_allclose(_f32(got), _f32(want), **_xtol(dtype))
 
@@ -501,7 +493,7 @@ def test_xlstm_prefill_and_decode_match(xlstm):
     step = {"tokens": jnp.asarray(forced[0][:, None], jnp.int32)}
     want, jstep = decode(params, jtemplate, step, jnp.int32(0))
     with torch.no_grad():
-        got, _ = port_model.apply(
+        got, _, _ = port_model.apply(
             model, {"tokens": torch.from_numpy(forced[0][:, None])},
             mode="decode", cache=cache, cache_index=0)
     np.testing.assert_allclose(_f32(got), _f32(want), **_xtol(dtype))
@@ -511,7 +503,7 @@ def test_xlstm_prefill_and_decode_match(xlstm):
         params, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)},
         mode="prefill")
     with torch.no_grad():
-        got, cache2 = port_model.apply(model,
+        got, cache2, _ = port_model.apply(model,
                                        {"tokens": torch.from_numpy(toks)},
                                        mode="prefill", cache=cache)
     assert cache2 is cache
@@ -521,7 +513,7 @@ def test_xlstm_prefill_and_decode_match(xlstm):
         step = {"tokens": jnp.asarray(forced[i][:, None], jnp.int32)}
         want, jcache = decode(params, jcache, step, jnp.int32(XS + i))
         with torch.no_grad():
-            got, cache = port_model.apply(
+            got, cache, _ = port_model.apply(
                 model, {"tokens": torch.from_numpy(forced[i][:, None])},
                 mode="decode", cache=cache, cache_index=XS + i)
         np.testing.assert_allclose(_f32(got), _f32(want), **_xtol(dtype))

@@ -13,9 +13,12 @@
    its full stream.
 5. **The real model** — the port's ``LMAdapter`` (smoke granite-3-2b,
    and smoke zamba2-2.7b and xlstm-350m with a 24-token prompt so that the
-   SSD and mLSTM scans pad to their chunk, fp32, on the CPU) under the port's engine gives the same greedy
-   streams as the JAX ``LMAdapter`` under the JAX engine on the
-   reference's weights and prompt tokens, on both legs.
+   SSD and mLSTM scans pad to their chunk, and smoke olmoe-1b-7b, whose
+   MoE blocks run in prefill and decode, fp32, on the CPU) under the
+   port's engine gives the same greedy streams as the JAX ``LMAdapter``
+   under the JAX engine on the reference's weights and prompt tokens, on
+   both legs.  A finished run leaves no reference cycle holding the
+   adapter or its model.
 
 Scenarios 1–4 are those of ``tests/test_serving.py`` sections 1–4 on the
 port's engine and ``SyntheticAdapter``; every ``run`` finishes in seconds
@@ -23,7 +26,9 @@ port's engine and ``SyntheticAdapter``; every ``run`` finishes in seconds
 """
 
 import dataclasses
+import gc
 import time
+import weakref
 
 import jax
 import numpy as np
@@ -387,6 +392,56 @@ def test_lm_adapter_xlstm_streams_equal_jax(xlstm_pair, completion):
     assert rep.outputs == want
 
 
+@pytest.fixture(scope="module")
+def olmoe_pair():
+    pair = _reference_pair("olmoe-1b-7b", PROMPT)
+    return pair, _reference_streams(pair[0], pair[1], PROMPT)
+
+
+@pytest.mark.parametrize("completion", ["event", "blocking"])
+def test_lm_adapter_olmoe_streams_equal_jax(olmoe_pair, completion):
+    """Smoke olmoe-1b-7b: every prefill and decode step routes through the
+    MoE blocks (the plain expert product on the CPU), and the greedy
+    streams equal the JAX ``LMAdapter``'s."""
+    (_, _, pcfg, model, prompt_tokens), want = olmoe_pair
+    adapter = LMAdapter(pcfg, model, prompt_len=PROMPT, gen_len=GEN,
+                        device="cpu", prompt_tokens=prompt_tokens)
+    adapter.warmup()
+    rep = ServingEngine(adapter, slots=2, completion=completion,
+                        num_workers=2).run(
+        [Request(rid=i, prompt=100 + i, gen_len=GEN) for i in range(N_REQ)])
+    assert rep.tokens == N_REQ * GEN
+    assert rep.outputs == want
+
+
+@pytest.mark.parametrize("completion", ["event", "blocking"])
+def test_engine_run_leaves_no_cycle_holding_the_model(completion):
+    """With the cyclic collector off, the model dies as soon as the caller
+    drops the engine, the adapter and the model after a run (the
+    requests and the report stay): nothing but reference counts holds it,
+    and every finished request has dropped its cache."""
+    cfg = dataclasses.replace(configs.smoke("olmoe-1b-7b"), dtype="float32")
+    was_enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        model = port_model.init(cfg, seed=0, device="cpu")
+        alive = weakref.ref(model)
+        adapter = LMAdapter(cfg, model, prompt_len=6, gen_len=3,
+                            device="cpu")
+        engine = ServingEngine(adapter, slots=2, completion=completion,
+                               num_workers=2)
+        reqs = [Request(rid=i, prompt=i, gen_len=3) for i in range(3)]
+        rep = engine.run(reqs)
+        del engine, adapter, model
+        assert alive() is None
+        assert all(r.cache is None for r in reqs)
+        assert rep.tokens == 9
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
 def test_lm_adapter_default_prompts_legs_equal(lm_pair):
     """With its own seeded prompts, both legs give the same streams and a
     re-run of one prompt repeats its stream."""
@@ -518,3 +573,25 @@ def test_serve_cli_xlstm_smoke_on_card(capsys, completion):
     assert mk.mlstm_chunk.launches - before == 5 * 3
     assert serve.main(args + ["--mlstm-impl", "ref"]) == 0
     assert mk.mlstm_chunk.launches - before == 5 * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("completion", ["event", "blocking"])
+def test_serve_cli_olmoe_smoke_on_card(capsys, completion):
+    """The serving CLI serves smoke olmoe-1b-7b on the card: every MoE
+    block of every prefill and decode step runs its three expert products
+    through ``moe_gmm``; ``--moe-impl ref`` launches it never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.launch import serve
+    before = mg.moe_gmm.launches
+    args = ["--arch", "olmoe-1b-7b", "--prompt-len", "24", "--gen", "8",
+            "--completion", completion]
+    assert serve.main(args) == 0
+    assert "device=cuda" in capsys.readouterr().out
+    # warm-up: a prefill and a decode step; 4 requests: a prefill and 7
+    # decode steps each; 2 MoE blocks a pass, 3 products a block
+    assert mg.moe_gmm.launches - before == (2 + 4 * 8) * 2 * 3
+    assert serve.main(args + ["--moe-impl", "ref"]) == 0
+    assert mg.moe_gmm.launches - before == (2 + 4 * 8) * 2 * 3
