@@ -53,12 +53,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``torch.quantize_per_tensor`` (eager) and ``torch.mul``.
 10. ``flash_attention`` against its plain version on the card: the five
     shapes of the JAX package's kernel test, S = T = 1000 and S = 1 with
-    T = 2080, and the prefill shape of the smoke-scale granite-3-2b that
-    the serving CLI runs by default (1, 32, 4/2, 16), in fp32 and bf16,
-    then granite-3-2b's prefill shape (1, 2048, 32/8, 64), zamba2-2.7b's
-    shared-attention shape (1, 2048, 32/32, 80) and olmoe-1b-7b's prefill
-    shape (1, 2048, 16/16, 128), each in bf16 (the main path's) and in fp32 (the same tiling held to fp32's tolerance) —
-    within 2e-5 (fp32) and 2e-2 (bf16), and two calls bitwise equal.
+    T = 2080, the prefill shape of the smoke-scale granite-3-2b that the
+    serving CLI runs by default (1, 32, 4/2, 16), and the edges of the
+    bf16 kernel's TMA tiles (B = 2 with T ragged at the first batch's end,
+    MQA with 32 heads packed in one block, S != T with a window, 126 of
+    128 rows used with a ragged T at head dim 16, ragged S and T at head
+    dim 32), in fp32 and bf16, then granite-3-2b's prefill shape (1, 2048,
+    32/8, 64), zamba2-2.7b's shared-attention shape (1, 2048, 32/32, 80)
+    and olmoe-1b-7b's prefill shape (1, 2048, 16/16, 128), each in bf16
+    (the main path's, on the tensor cores) and in fp32 (the FMA kernel,
+    held to fp32's tolerance) — within 2e-5 (fp32) and 2e-2 (bf16), at
+    the three served shapes in bf16 also RMS(kernel - plain) / RMS(plain)
+    within ``FLASH_SERVED_REL_RMS``, and two calls bitwise equal.
 11. The serving main path: granite-3-2b at full width and depth
     (2,533,531,648 parameters, bf16, random weights from seed 0) served
     by ``ServingEngine`` + ``LMAdapter`` — 4 requests of 2048 prompt
@@ -72,7 +78,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     prefill ms and decode ms per token.
 12. Timing of ``flash_attention`` at granite's prefill shape (the
     ``kernels`` line's) and at zamba2's shared-attention shape, as in
-    phase 5, beside ``scaled_dot_product_attention`` (``library_ms``).
+    phase 5, beside ``scaled_dot_product_attention`` (``library_ms``),
+    with the achieved TFLOP/s and ``bound_ms / ms``.
 13. ``mamba2_ssd`` against its plain version on the card: the JAX
     package's kernel-test shapes, p = n = 8, smoke zamba2-2.7b's prefill,
     p = n = 128 at chunk 256 and a chunk of 12, in fp32 and bf16, from a
@@ -135,7 +142,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 21. Timing of ``moe_gmm`` at olmoe's two prefill shapes and its decode
     shape, as in phase 5, beside ``torch.bmm`` in bf16 (``library_ms``),
     and of ``flash_attention`` at olmoe's prefill shape beside
-    ``scaled_dot_product_attention``.
+    ``scaled_dot_product_attention``, as in phase 12.
 
 After each served model, the memory it held must be free again without
 the cyclic garbage collector (within 1 GiB of what was allocated before).
@@ -761,7 +768,8 @@ def time_stage_kernels(stages, ref, device):
 
 # Phase 10 shapes: (B, S, T, H, Hkv, D, causal, window) -- the sweep of the
 # JAX package's kernel test, a ragged pair, the smoke-scale granite-3-2b
-# prefill of the serving CLI's defaults, and granite-3-2b's prefill.
+# prefill of the serving CLI's defaults, and the edges of the bf16 kernel's
+# 128-row, 128-key TMA tiles at every head dim.
 FLASH_CASES = (
     (1, 256, 256, 4, 2, 64, True, None),
     (2, 128, 128, 8, 8, 128, False, None),
@@ -771,6 +779,11 @@ FLASH_CASES = (
     (1, 1000, 1000, 4, 2, 64, True, None),
     (1, 1, 2080, 4, 2, 64, False, None),
     (1, 32, 32, 4, 2, 16, True, None),
+    (2, 1000, 1000, 4, 2, 80, True, None),
+    (1, 300, 300, 32, 1, 128, True, None),
+    (2, 77, 200, 8, 2, 64, False, 50),
+    (1, 130, 257, 6, 2, 16, False, None),
+    (2, 200, 333, 4, 4, 32, True, 64),
 )
 GRANITE_PREFILL = (1, 2048, 2048, 32, 8, 64, True, None)
 # zamba2-2.7b's shared attention: 32 heads of dim 80 over 32 kv heads
@@ -779,6 +792,14 @@ ZAMBA_PREFILL = (1, 2048, 2048, 32, 32, 80, True, None)
 OLMOE_PREFILL = (1, 2048, 2048, 16, 16, 128, True, None)
 # tests/test_kernels.py's tolerances (atol = rtol), compared in fp32
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# At the three served shapes the bf16 kernel is also held to RMS(kernel -
+# plain) / RMS(plain): there a causal row averages up to 2048 values, so a
+# late row's |o| is about 0.03 and 2e-2 absolute is loose for it.  On an
+# NVIDIA H100 80GB HBM3 at 700 W the kernel reads 0.0021 (the bf16 rounding
+# of o), and faults planted in a copy of its pipeline read 0.034 to 0.51
+# (alpha forced to 1 or the O rescale dropped from the 9th key tile on, one
+# tile or half a tile dropped deep in a row, the last tile dropped).
+FLASH_SERVED_REL_RMS = 1e-2
 # Phases 11, 14 and 17: granite-3-2b, zamba2-2.7b and xlstm-350m at full width
 # and depth, served on one card.
 GRANITE_PARAMS = 2_533_531_648
@@ -810,14 +831,14 @@ def _qkv(case, dtype, device, seed):
 
 def check_flash_attention(fa, ref, device) -> float:
     """Phase 10: the kernel against its plain version on the card at every
-    shape, in fp32 and bf16, and bitwise repeatable; returns the largest
+    shape, in fp32 and bf16 (at the served shapes in bf16 also as a ratio
+    of RMS), and bitwise repeatable; returns the largest
     |kernel - plain| at granite's prefill shape (bf16)."""
     import torch
     worst = 0.0
     cases = [(c, dt) for dt in ("float32", "bfloat16") for c in FLASH_CASES]
-    cases += [(c, dt)
-              for c in (GRANITE_PREFILL, ZAMBA_PREFILL, OLMOE_PREFILL)
-              for dt in ("bfloat16", "float32")]
+    served = (GRANITE_PREFILL, ZAMBA_PREFILL, OLMOE_PREFILL)
+    cases += [(c, dt) for c in served for dt in ("bfloat16", "float32")]
     for case, dt in cases:
         causal, window = case[6], case[7]
         q, k, v = _qkv(case, getattr(torch, dt), device, seed=sum(case[:6]))
@@ -838,8 +859,19 @@ def check_flash_attention(fa, ref, device) -> float:
                                  f"atol = rtol = {tol}")
         if case == GRANITE_PREFILL and dt == "bfloat16":
             worst = err
-        log(f"{tag}: max |kernel - plain| {err:.3g} (atol = rtol = {tol}), "
-            f"two calls bitwise equal")
+        rel = ""
+        if case in served and dt == "bfloat16":
+            diff = got.double() - want.double()
+            rms = float(diff.square().mean().sqrt()
+                        / want.double().square().mean().sqrt())
+            if not rms <= FLASH_SERVED_REL_RMS:
+                raise AssertionError(f"{tag}: RMS(kernel - plain) / "
+                                     f"RMS(plain) {rms} beyond "
+                                     f"{FLASH_SERVED_REL_RMS}")
+            rel = (f", RMS(kernel - plain) / RMS(plain) {rms:.3g} "
+                   f"(<= {FLASH_SERVED_REL_RMS})")
+        log(f"{tag}: max |kernel - plain| {err:.3g} (atol = rtol = {tol})"
+            f"{rel}, two calls bitwise equal")
     return worst
 
 
@@ -1123,7 +1155,9 @@ def time_flash_attention(fa, ref, device, cases) -> dict:
             f"{t['plain_ms']:.6f}, SDPA {t['library_ms']:.6f}, max |SDPA - "
             f"kernel| {lib_err:.3g}), eager wrapper {t['wrapper_ms']:.6f}, "
             f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: "
-            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+            f"{flops / t['ms'] / 1e9:.1f} TFLOP/s, bound / ms "
+            f"{t['bound_ms'] / t['ms']:.4f}")
         out[case] = t
         del ring, sdpa, lib
     return out
@@ -1768,7 +1802,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:98",
         "launches": sum(run["launches"]["flash_attention"]
                         for run in (serve, zserve, oserve)),
-        "max_abs_err": flash_err, **flash_t[GRANITE_PREFILL]})
+        "max_abs_err": flash_err, **flash_t[GRANITE_PREFILL],
+        "design": "wgmma+tma"})
     kernels.append({
         "name": "mamba2_ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library, which is loaded with
 ``ctypes``.  The build runs at first use, into ``_build/`` beside this file
-(listed in ``.gitignore``), under a directory keyed by a hash of the sources
-and the flags, so a changed source is rebuilt and an unchanged one is
-loaded as it is.  Only the sources in the package are compiled.
+(listed in ``.gitignore``), under a directory keyed by a hash of the source,
+the shared headers ``csrc/*.cuh`` and the flags, so a changed source or
+header is rebuilt and an unchanged one is loaded as it is.  Only the
+sources in the package are compiled.
 
 Nothing here runs at import: the CPU tests import every module on a host
 without ``nvcc``.
@@ -82,9 +83,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_ROOT / key[:16] / f"lib{name}.so"
+    """The library's path, keyed by its source, every shared header of
+    ``csrc/`` (any source may include one) and the flags."""
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + b"\0" + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / key.hexdigest()[:16] / f"lib{name}.so"
 
 
 def _start(name: str, target: Path) -> subprocess.Popen:

@@ -8,7 +8,9 @@ for CPU tensors; nothing falls back.  ``flash_attention.launches`` counts
 the kernel's launches (plain-version calls count nothing).
 
 Unlike the Pallas wrapper, any S and T are taken: ``S % block_q == 0`` is
-a TPU tiling limit, and the kernel masks its ragged tiles.
+a TPU tiling limit, and the kernel masks its ragged tiles.  bf16 runs on
+the tensor cores (``wgmma``, with q, k and v loaded by TMA, so each must
+start on a 16-byte boundary); fp32 on the FMA pipes.
 """
 
 from __future__ import annotations
@@ -59,6 +61,9 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             if not t.is_contiguous():
                 raise ValueError(f"flash_attention: {name} must be "
                                  f"contiguous")
+            if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} must start on a "
+                                 f"16-byte boundary (TMA loads it)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
