@@ -33,7 +33,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 7. The Level-B stage kernels against their plain versions on the card,
    bitwise: ``fused_combine`` in every variant (acc fp32/bf16 x got
    fp32/bf16/int8+scale x accumulate, and in place) at lengths 1, 257,
-   1031, 2^20+3 and the main path's fused-mode ring chunk;
+   1031, 2^20+3 and the main path's fused-mode ring chunk, and at the
+   lengths below the chunk also on views at element offsets 1 and 3 (acc
+   and got misaligned together and against each other);
    ``quantize_wire`` (fp32 and bf16 input, values on exact .5 boundaries
    rounding half to even) and ``dequantize_wire`` to fp32 and bf16.
 8. The Level-B main path: ``bench.overlap.run_sync`` on hubert-xlarge's
@@ -50,7 +52,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 9. Timing of the three stage kernels at the main path's chunk shapes, as
    in phase 5, beside one PyTorch call computing the same function
    (``library_ms``): ``torch.add``, ``torch.add(alpha=scale)``,
-   ``torch.quantize_per_tensor`` (eager) and ``torch.mul``.
+   ``torch.quantize_per_tensor`` (eager) and ``torch.mul``;
+   ``fused_combine``'s share of its bound is logged.
 10. ``flash_attention`` against its plain version on the card: the five
     shapes of the JAX package's kernel test, S = T = 1000 and S = 1 with
     T = 2080, the prefill shape of the smoke-scale granite-3-2b that the
@@ -123,10 +126,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
     kernel-test shapes (E, C, K, N), ragged C, K and N down to C = 2,
     olmoe-1b-7b's decode shapes (64, 8, 2048, 1024) and (64, 8, 1024, 2048)
     and its prefill shapes (64, 320, 2048, 1024) and (64, 320, 1024, 2048),
-    in fp32 and bf16 — within 2e-5 (fp32) and 2e-2 (bf16), atol = rtol, at
-    the small shapes, and as max|diff| / max|plain| at olmoe's (K of
-    1024-2048 makes an elementwise rtol meaningless near 0); two calls
-    bitwise equal.
+    in fp32 and bf16, and in bf16 the edges of the wgmma route's tiles (C
+    from 1 to 321 across the 8- and 160-row tiles of x, K and N
+    multiples of 8 but not of the tile, E = 1) and x and w as views at
+    element offsets 8 (16-byte aligned) and 1 (not) — within 2e-5 (fp32)
+    and 2e-2 (bf16), atol = rtol, at the small shapes, and as max|diff| /
+    max|plain| at olmoe's (K of 1024-2048 makes an elementwise rtol
+    meaningless near 0); two calls bitwise equal.  Each case logs its
+    route; the served bf16 shapes must take ``wgmma`` / ``wgmma_decode``
+    and all four routes must run.
 20. The olmoe serving path: olmoe-1b-7b at full width and depth
     (6,919,096,320 parameters: 16 layers of attention and a MoE block of 64
     experts, top-8), as phase 11 — identical streams on both legs,
@@ -139,8 +147,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     whole model gets phase 11's gates in bf16 where they hold, else on an
     fp32 copy of the weights; the number of (layer, token) top-8 sets that
     differ between the kernel and plain paths is printed.
-21. Timing of ``moe_gmm`` at olmoe's two prefill shapes and its decode
-    shape, as in phase 5, beside ``torch.bmm`` in bf16 (``library_ms``),
+21. Timing of ``moe_gmm`` at olmoe's two prefill and two decode shapes,
+    as in phase 5, beside ``torch.bmm`` in bf16 (``library_ms``) and the
+    bound,
     and of ``flash_attention`` at olmoe's prefill shape beside
     ``scaled_dot_product_attention``, as in phase 12.
 
@@ -176,6 +185,10 @@ FUSED_CHUNK = HUBERT_PARAMS // N_RANKS
 BUCKET_CHUNKS = ((1280 * 2 + 48 * 1280 * 1280) // N_RANKS,
                  (48 * 1280 * 2 + 48 * 5120 * 1280) // N_RANKS)
 STAGE_LENGTHS = (1, 257, 1031, (1 << 20) + 3, FUSED_CHUNK)
+# fused_combine on views (acc offset, got offset, in elements) into flat
+# buffers, as ring chunks are: 1 and 3 misalign every dtype's 16-byte
+# vectors, together (both at 1 or 3) and against each other (1 with 3).
+STAGE_VIEW_OFFSETS = ((1, 1), (3, 3), (1, 3), (0, 3))
 # Tolerances of a sync_grads result against the float64 mean, as
 # max|result - mean| / max|mean| per leaf: an fp32 wire rounds fp32 leaves
 # at the last bit and bf16 leaves at bf16's (2^-8); the narrow wires as
@@ -460,6 +473,34 @@ def _max_abs_diff(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def check_combine_views(stages, ref, device, m, held) -> int:
+    """Every ``fused_combine`` variant, and the in-place update, on views
+    of length ``m`` at the offsets of STAGE_VIEW_OFFSETS, bitwise against
+    the plain version (``held``); returns the number of calls."""
+    accs, gots = _stage_inputs(m + 3, device, seed=2)
+    n = 0
+    for oa, og in STAGE_VIEW_OFFSETS:
+        for an, acc0 in accs.items():
+            acc = acc0[oa:oa + m]
+            for gn, (got0, scale) in gots.items():
+                got = got0[og:og + m]
+                what = f"acc {an} got {gn} m={m} views at {oa}, {og}"
+                for accumulate in (True, False):
+                    held("fused_combine",
+                         stages.fused_combine(acc, got, scale,
+                                              accumulate=accumulate),
+                         ref.combine_stage(acc, got, scale,
+                                           accumulate=accumulate),
+                         f"{what} accumulate {accumulate}")
+                buf = acc0.clone()
+                inplace = buf[oa:oa + m]
+                stages.fused_combine(inplace, got, scale, out=inplace)
+                held("fused_combine", inplace,
+                     ref.combine_stage(acc, got, scale), f"in place {what}")
+                n += 3
+    return n
+
+
 def check_stage_kernels(stages, ref, device,
                         lengths=STAGE_LENGTHS) -> dict:
     """Phase 7: each Level-B stage kernel bitwise against its plain version
@@ -512,6 +553,11 @@ def check_stage_kernels(stages, ref, device,
         log(f"stage kernels m={m}: fused_combine {n_var} variants + in "
             f"place, quantize_wire fp32/bf16, dequantize_wire fp32/bf16 "
             f"bitwise equal to plain")
+        if m < FUSED_CHUNK:
+            n_view = check_combine_views(stages, ref, device, m, held)
+            log(f"stage kernels m={m}: fused_combine on views at offsets "
+                f"{STAGE_VIEW_OFFSETS}, {n_view} calls bitwise equal to "
+                f"plain")
     # exact .5 boundaries: scale = 15.875 / 127 = 0.125 exactly, so
     # x / scale lands on k + 0.5 and must round half to even
     half = torch.arange(-127, 127, dtype=torch.float32) + 0.5
@@ -709,13 +755,16 @@ def time_stage_kernels(stages, ref, device):
                       / ulp).max())
         del lib8, big, ulp
         log(f"fused_combine m={m} fp32+fp32: device {t['ms']:.6f} ms (plain "
-            f"{t['plain_ms']:.6f}, torch.add {t['library_ms']:.6f}), eager "
-            f"wrapper {t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms")
+            f"{t['plain_ms']:.6f}, torch.add {t['library_ms']:.6f}, kernel "
+            f"/ add {t['ms'] / t['library_ms']:.4f}), eager wrapper "
+            f"{t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms, bound / "
+            f"ms {t['bound_ms'] / t['ms']:.4f}")
         log(f"fused_combine m={m} fp32+int8*scale: device {t8['ms']:.6f} ms "
             f"(plain {t8['plain_ms']:.6f}, torch.add(alpha=scale) "
             f"{t8['library_ms']:.6f}, at most {ulp8:.3g} ulp of the larger "
             f"addend from the kernel's result), bound "
-            f"{t8['bound_ms']:.6f} ms")
+            f"{t8['bound_ms']:.6f} ms, bound / ms "
+            f"{t8['bound_ms'] / t8['ms']:.4f}")
         if m != FUSED_CHUNK:
             del sets, acc, got, q, sc
             continue
@@ -1486,6 +1535,20 @@ GMM_CASES = (
 )
 OLMOE_GMM_DECODE = ((64, 8, 2048, 1024), (64, 8, 1024, 2048))
 OLMOE_GMM_PREFILL = ((64, 320, 2048, 1024), (64, 320, 1024, 2048))
+# The edges of the wgmma route's tiles (bf16, K and N multiples of 8): C
+# across the decode tile's 8 rows of x, the prefill tile's 160 (159-161,
+# 319-321 around olmoe's cap) and 64-row steps, K and N that are not
+# multiples of the 64-deep stages or of the 128- and 256-column tiles
+# of w, one expert.
+GMM_EDGE_CASES = tuple((2, C, 72, 200) for C in
+                       (1, 8, 9, 63, 64, 65, 159, 160, 161, 319, 320,
+                        321)) + (
+    (3, 65, 72, 200), (2, 320, 1032, 136), (1, 320, 2048, 1024),
+    (1, 8, 2048, 1024))
+# x and w as views into flat buffers at an offset of `offset` elements:
+# 8 (16 bytes: still the wgmma route) and 1 (2 bytes: the mma_sync route).
+GMM_VIEW_CASES = (((3, 65, 72, 200), 8), ((4, 8, 64, 136), 8),
+                  ((3, 65, 72, 200), 1), ((4, 8, 64, 136), 1))
 GMM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 OLMOE_PARAMS = 6_919_096_320
 # Each MoE block's three expert products, in prefill and in each of the
@@ -1503,46 +1566,79 @@ def _gmm_inputs(case, dtype, device, seed):
             torch.randn((E, K, N), generator=gen, device=device).to(dtype))
 
 
+def _gmm_view_inputs(case, offset, device, seed):
+    """bf16 x and w of ``case`` as contiguous views ``offset`` elements
+    into flat buffers."""
+    import torch
+    E, C, K, N = case
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    bx = torch.randn(E * C * K + offset, generator=gen, device=device)
+    bw = torch.randn(E * K * N + offset, generator=gen, device=device)
+    return (bx.to(torch.bfloat16)[offset:].view(E, C, K),
+            bw.to(torch.bfloat16)[offset:].view(E, K, N))
+
+
 def check_moe_gmm(mg, ref, device) -> float:
     """Phase 19: the kernel against its plain version on the card at every
-    shape, in fp32 and bf16, and bitwise repeatable.  Returns the largest
-    |kernel - plain| at olmoe's first prefill shape (bf16)."""
+    shape, in fp32 and bf16 (and the wgmma route's tile edges and views
+    in bf16), and bitwise repeatable; each case's route is logged, the
+    served bf16 shapes must take the wgmma routes and every bf16 route
+    must run.  Returns the largest |kernel - plain| at olmoe's first
+    prefill shape (bf16)."""
     import torch
     worst = 0.0
     olmoe = OLMOE_GMM_DECODE + OLMOE_GMM_PREFILL
-    for dt in ("float32", "bfloat16"):
-        for case in GMM_CASES + olmoe:
+    routes = set()
+    runs = [(dt, case, None) for dt in ("float32", "bfloat16")
+            for case in GMM_CASES + olmoe]
+    runs += [("bfloat16", case, None) for case in GMM_EDGE_CASES]
+    runs += [("bfloat16", case, off) for case, off in GMM_VIEW_CASES]
+    for dt, case, offset in runs:
+        if offset is None:
             x, w = _gmm_inputs(case, getattr(torch, dt), device,
                                seed=sum(case))
-            got = mg.moe_gmm(x, w)
-            again = mg.moe_gmm(x, w)
-            want = ref.moe_gmm(x, w)
-            torch.cuda.synchronize()
-            tag = f"moe_gmm {dt} {case}"
-            E, C, K, N = case
-            if got.dtype != x.dtype or got.shape != (E, C, N):
-                raise AssertionError(f"{tag}: result {got.dtype} "
-                                     f"{tuple(got.shape)}")
-            if not torch.equal(got, again):
-                raise AssertionError(f"{tag}: two calls differ")
-            tol = GMM_TOL[dt]
-            err = _max_abs_diff(got, want)
-            if case in olmoe:
-                rel = err / float(want.float().abs().max())
-                if not rel <= tol:
-                    raise AssertionError(f"{tag}: max|diff| / max|plain| "
-                                         f"{rel:.3g} beyond {tol}")
-                if case == OLMOE_GMM_PREFILL[0] and dt == "bfloat16":
-                    worst = err
-                log(f"{tag}: max|diff| / max|plain| {err:.3g} = {rel:.3g} "
-                    f"(tolerance {tol}), two calls bitwise equal")
-                continue
-            if not torch.allclose(got.float(), want.float(), atol=tol,
-                                  rtol=tol):
-                raise AssertionError(f"{tag}: max |kernel - plain| {err} "
-                                     f"beyond atol = rtol = {tol}")
-            log(f"{tag}: max |kernel - plain| {err:.3g} (atol = rtol = "
-                f"{tol}), two calls bitwise equal")
+        else:
+            x, w = _gmm_view_inputs(case, offset, device, sum(case))
+        route = mg.route(x, w)
+        routes.add(route)
+        got = mg.moe_gmm(x, w)
+        again = mg.moe_gmm(x, w)
+        want = ref.moe_gmm(x, w)
+        torch.cuda.synchronize()
+        tag = f"moe_gmm {dt} {case} route {route}" + (
+            "" if offset is None else f", views at offset {offset}")
+        E, C, K, N = case
+        if dt == "bfloat16" and case in olmoe and route != (
+                "wgmma_decode" if C <= mg.DECODE_ROWS else "wgmma"):
+            raise AssertionError(f"{tag}: a served shape off the wgmma "
+                                 f"route")
+        if got.dtype != x.dtype or got.shape != (E, C, N):
+            raise AssertionError(f"{tag}: result {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{tag}: two calls differ")
+        tol = GMM_TOL[dt]
+        err = _max_abs_diff(got, want)
+        if case in olmoe:
+            rel = err / float(want.float().abs().max())
+            if not rel <= tol:
+                raise AssertionError(f"{tag}: max|diff| / max|plain| "
+                                     f"{rel:.3g} beyond {tol}")
+            if case == OLMOE_GMM_PREFILL[0] and dt == "bfloat16":
+                worst = err
+            log(f"{tag}: max|diff| / max|plain| {err:.3g} = {rel:.3g} "
+                f"(tolerance {tol}), two calls bitwise equal")
+            continue
+        if not torch.allclose(got.float(), want.float(), atol=tol,
+                              rtol=tol):
+            raise AssertionError(f"{tag}: max |kernel - plain| {err} "
+                                 f"beyond atol = rtol = {tol}")
+        log(f"{tag}: max |kernel - plain| {err:.3g} (atol = rtol = "
+            f"{tol}), two calls bitwise equal")
+    missing = set(mg.ROUTES) - routes
+    if missing:
+        raise AssertionError(f"moe_gmm: routes {sorted(missing)} never ran")
     return worst
 
 
@@ -1632,8 +1728,8 @@ def compare_moe(arch, cfg, model, kernels, plain, device, stream) -> dict:
 
 
 def time_moe_gmm(mg, ref, device) -> dict:
-    """Phase 21: times per call at olmoe's prefill shapes and its first
-    decode shape, bf16, as in phase 5 (two input sets a shape: the
+    """Phase 21: times per call at olmoe's two prefill and two decode
+    shapes, bf16, as in phase 5 (two input sets a shape: the
     weights alone, 268 MB, exceed the 50 MB L2, so every launch reads cold
     data), beside one PyTorch call computing the same function
     (``library_ms``: ``torch.bmm``, bf16 in and out).  The bound counts x
@@ -1642,7 +1738,7 @@ def time_moe_gmm(mg, ref, device) -> dict:
     zero rows of unfilled slots too).  Returns them by shape."""
     import torch
     out = {}
-    for case in OLMOE_GMM_PREFILL + OLMOE_GMM_DECODE[:1]:
+    for case in OLMOE_GMM_PREFILL + OLMOE_GMM_DECODE:
         E, C, K, N = case
         ring = [_gmm_inputs(case, torch.bfloat16, device, seed=80 + i)
                 for i in range(2)]
@@ -1657,12 +1753,16 @@ def time_moe_gmm(mg, ref, device) -> dict:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t["bound_ms"] = max(t_ops, t_bytes)
         t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-        log(f"moe_gmm {case} bf16: device {t['ms']:.6f} ms (plain "
-            f"{t['plain_ms']:.6f}, torch.bmm {t['library_ms']:.6f}, max "
-            f"|bmm - kernel| {lib_err:.3g}), eager wrapper "
-            f"{t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms "
-            f"({t['bound_by']}: {flops / 1e9:.3f} GFLOP, {t_ops:.6f} ms; "
-            f"{nbytes / 1e6:.3f} MB, {t_bytes:.6f} ms)")
+        log(f"moe_gmm {case} bf16, route {mg.route(*ring[0])}: device "
+            f"{t['ms']:.6f} ms (plain {t['plain_ms']:.6f}, torch.bmm "
+            f"{t['library_ms']:.6f}, kernel / bmm "
+            f"{t['ms'] / t['library_ms']:.3f}, max |bmm - kernel| "
+            f"{lib_err:.3g}), eager wrapper {t['wrapper_ms']:.6f}, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {flops / 1e9:.3f} "
+            f"GFLOP, {t_ops:.6f} ms; {nbytes / 1e6:.3f} MB, "
+            f"{t_bytes:.6f} ms), bound / ms "
+            f"{t['bound_ms'] / t['ms']:.4f}, {flops / t['ms'] / 1e9:.1f} "
+            f"TFLOP/s")
         out[case] = t
         del ring
     return out

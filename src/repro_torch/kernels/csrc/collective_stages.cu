@@ -22,6 +22,19 @@
 //     store, neighbouring threads on neighbouring addresses, so a warp's
 //     loads coalesce and each thread keeps several in flight; the tail is
 //     masked element by element.
+//   * fused_combine moves every array in 16-byte vectors: a thread's
+//     vector is V = 16 / (the narrower of acc's and got's element size)
+//     elements -- 4 fp32, 8 bf16 or 16 int8 of the narrower, one or more
+//     16-byte loads of the wider -- and kVecUnroll vectors of a tile are
+//     loaded before any is stored.  Ring chunks are views at any offset
+//     into a flat buffer, so the first `head` elements (up to where out
+//     is 16-byte aligned) and the ragged tail are done one at a time, by
+//     the first threads of the grid.  Its grid is one tile a block, not
+//     kBlocksPerSM blocks a SM looping over tiles: the hardware's block
+//     scheduler balances the streams better than the fixed loop did.  When
+//     acc, got and out are not all 16-byte aligned at the same element
+//     (views at mutually misaligned offsets), the call takes the
+//     element-at-a-time kernel above.
 //   * The grid is kBlocksPerSM blocks per SM (full occupancy at 256
 //     threads), capped by the work.
 //   * With accumulate = 0, `acc` is never read.  `out` may be `acc` itself
@@ -40,11 +53,14 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
+constexpr int kVecUnroll = 2;   // vectors a thread loads before it stores
+constexpr int64_t kMaxBlocks = 0x7fffffff;   // the grid's x extent
 constexpr int kBlocksPerSM = 8;
 constexpr int kMaxDevices = 64;
 
@@ -73,6 +89,14 @@ __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float<T>(v));
 }
 
+// One element of the combine, rounded as the plain version rounds it.
+template <typename A, bool kScaled, bool kAccumulate>
+__device__ __forceinline__ A combine_one(float a, float g, float s) {
+  float v = round_to<A>(kScaled ? __fmul_rn(g, s) : g);
+  if (kAccumulate) v = __fadd_rn(a, v);
+  return from_float<A>(v);
+}
+
 template <typename A, typename G, bool kScaled, bool kAccumulate>
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(const A* acc, const G* __restrict__ got,
@@ -93,10 +117,90 @@ combine_kernel(const A* acc, const G* __restrict__ got,
 #pragma unroll
     for (int j = 0; j < kUnroll; ++j) {
       const int64_t i = base + j * kThreads + threadIdx.x;
-      if (i < n) {
-        float v = round_to<A>(kScaled ? __fmul_rn(g[j], s) : g[j]);
-        if (kAccumulate) v = __fadd_rn(a[j], v);
-        out[i] = from_float<A>(v);
+      if (i < n)
+        out[i] = combine_one<A, kScaled, kAccumulate>(
+            kAccumulate ? a[j] : 0.0f, g[j], s);
+    }
+  }
+}
+
+// V elements of T from (or to) 16-byte aligned memory, as V * sizeof(T) /
+// 16 vector accesses.
+template <int V, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&f)[V]) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+#pragma unroll
+  for (int q = 0; q < V / kPer; ++q) {
+    const uint4 raw = reinterpret_cast<const uint4*>(p)[q];
+    T e[kPer];
+    memcpy(e, &raw, 16);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) f[q * kPer + j] = to_float(e[j]);
+  }
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[V]) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+#pragma unroll
+  for (int q = 0; q < V / kPer; ++q) {
+    uint4 raw;
+    memcpy(&raw, v + q * kPer, 16);
+    reinterpret_cast<uint4*>(p)[q] = raw;
+  }
+}
+
+template <typename A, typename G>
+struct Vec {
+  static constexpr int kBytes = sizeof(A) < sizeof(G) ? sizeof(A) : sizeof(G);
+  static constexpr int V = 16 / kBytes;     // elements a vector
+};
+
+// Elements [0, head) and [head + n_vec * V, n) one at a time by the first
+// threads of the grid; vectors i of elements [head + V i, head + V i + V)
+// in a grid-stride loop over tiles of kThreads * kVecUnroll vectors.
+// acc + head, got + head and out + head are 16-byte aligned.
+template <typename A, typename G, bool kScaled, bool kAccumulate>
+__global__ void __launch_bounds__(kThreads)
+combine_vec_kernel(const A* acc, const G* __restrict__ got,
+                   const float* __restrict__ scale, A* out, int64_t n,
+                   int64_t head, int64_t n_vec) {
+  constexpr int V = Vec<A, G>::V;
+  const float s = kScaled ? *scale : 1.0f;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t tail = head + n_vec * V;
+  if (t < head)
+    out[t] = combine_one<A, kScaled, kAccumulate>(
+        kAccumulate ? to_float(acc[t]) : 0.0f, to_float(got[t]), s);
+  if (tail + t < n)
+    out[tail + t] = combine_one<A, kScaled, kAccumulate>(
+        kAccumulate ? to_float(acc[tail + t]) : 0.0f, to_float(got[tail + t]),
+        s);
+  const A* av = acc + head;
+  const G* gv = got + head;
+  A* ov = out + head;
+  const int64_t tile = static_cast<int64_t>(kThreads) * kVecUnroll;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * tile;
+  for (int64_t base = blockIdx.x * tile; base < n_vec; base += step) {
+    float g[kVecUnroll][V], a[kVecUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kVecUnroll; ++u) {
+      const int64_t v = base + u * kThreads + threadIdx.x;
+      if (v < n_vec) {
+        load_vec(gv + v * V, g[u]);
+        if (kAccumulate) load_vec(av + v * V, a[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kVecUnroll; ++u) {
+      const int64_t v = base + u * kThreads + threadIdx.x;
+      if (v < n_vec) {
+        A r[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          r[k] = combine_one<A, kScaled, kAccumulate>(
+              kAccumulate ? a[u][k] : 0.0f, g[u][k], s);
+        store_vec(ov + v * V, r);
       }
     }
   }
@@ -168,12 +272,40 @@ int grid_for(int64_t n) {
   return static_cast<int>(want < cap ? want : cap);
 }
 
+// The vector kernel when acc (if read), got and out are 16-byte aligned at
+// one element, else the element-at-a-time kernel.
 template <typename A, typename G, bool kScaled, bool kAccumulate>
 int run_combine(const void* acc, const void* got, const void* scale,
                 void* out, int64_t n, cudaStream_t s) {
-  combine_kernel<A, G, kScaled, kAccumulate><<<grid_for(n), kThreads, 0, s>>>(
-      static_cast<const A*>(acc), static_cast<const G*>(got),
-      static_cast<const float*>(scale), static_cast<A*>(out), n);
+  constexpr int V = Vec<A, G>::V;
+  const auto mis = [](const void* p, int64_t elems, int64_t size) {
+    return (reinterpret_cast<uintptr_t>(p) + elems * size) % 16;
+  };
+  const uintptr_t o = reinterpret_cast<uintptr_t>(out);
+  int64_t head = static_cast<int64_t>((16 - o % 16) % 16 / sizeof(A));
+  if (head > n) head = n;
+  const bool aligned = o % sizeof(A) == 0 &&
+                       mis(out, head, sizeof(A)) == 0 &&
+                       mis(got, head, sizeof(G)) == 0 &&
+                       (!kAccumulate || mis(acc, head, sizeof(A)) == 0);
+  if (aligned) {
+    const int64_t n_vec = (n - head) / V;
+    // one tile a block (the grid-stride loop only past kMaxBlocks)
+    const int64_t tile = static_cast<int64_t>(kThreads) * kVecUnroll;
+    const int64_t want = (n_vec + tile - 1) / tile;
+    const int grid = static_cast<int>(want < 1            ? 1
+                                      : want < kMaxBlocks ? want
+                                                          : kMaxBlocks);
+    combine_vec_kernel<A, G, kScaled, kAccumulate><<<grid, kThreads, 0, s>>>(
+        static_cast<const A*>(acc), static_cast<const G*>(got),
+        static_cast<const float*>(scale), static_cast<A*>(out), n, head,
+        n_vec);
+  } else {
+    combine_kernel<A, G, kScaled, kAccumulate>
+        <<<grid_for(n), kThreads, 0, s>>>(
+            static_cast<const A*>(acc), static_cast<const G*>(got),
+            static_cast<const float*>(scale), static_cast<A*>(out), n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

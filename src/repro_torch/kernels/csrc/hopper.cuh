@@ -13,9 +13,10 @@
 //   * K-major operand (the reduction axis contiguous: Q and K of
 //     attention): rows are M or N; stride between 8-row groups (SBO) 8
 //     rows.
-//   * MN-major operand (N contiguous: V of attention, B with the
-//     transpose bit): rows are k; the slices of a tile follow each other
-//     at LBO bytes, 8-row groups at SBO = 8 rows.
+//   * MN-major operand (M or N contiguous: V of attention, a row-major
+//     (K, N) weight as A of the swapped product; the transpose bit): rows
+//     are k; the slices of a tile follow each other at LBO bytes, 8-row
+//     groups at SBO = 8 rows.
 // Tile bases are 1024-byte aligned, so the swizzle phase TMA writes and the
 // one wgmma reads agree (descriptor base offset 0).
 //
@@ -100,6 +101,48 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Copy the box at coordinates (c0, c1, c2, c3) of `map` from shared memory
+// at `src` to global memory; elements outside the tensor are not written.
+// Completion is tracked by bulk groups (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are still reading their
+// shared-memory source (the source may then be overwritten) ...
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
+}
+
+// ... or have not completed their writes.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the async proxy (a
+// TMA store that reads them).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
 }
 
 // ---- register rebalancing between warpgroups ------------------------------
@@ -188,6 +231,14 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t b);
+
+// d (64 x N) (+)= A (64 x 16) . B (16 x N), both bf16 in shared memory: A
+// MN-major (its 64 rows contiguous: the transpose bit), B K-major.  With a
+// row-major (K, N) weight as A this is out^T = w^T . x^T, the product of a
+// few rows x against a 64-column weight slice.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_ta(float (&d)[N / 2], uint64_t a,
+                                            uint64_t b, int scale_d);
 
 // The explicit operand lists, one per width in use.
 template <>
@@ -356,6 +407,56 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_ta<8>(float (&d)[4], uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, "
+      "%4, %5, p, 1, 1, 1, 0;"
+      "\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_ta<160>(float (&d)[80], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, "
+      "%80, %81, p, 1, 1, 1, 0;"
+      "\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // ---- host: TMA tensor maps -------------------------------------------------

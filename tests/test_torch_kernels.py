@@ -234,6 +234,24 @@ def _half_boundaries():
                            np.float32([15.875, -15.875])]).astype(np.float32)
 
 
+@pytest.mark.parametrize("m", [1031, 1034])
+def test_quantize_scale_is_a_true_division(m):
+    """The wire scale is fl(max|x| / 127), one rounding, as the JAX
+    package's source writes it.  ``_wire_inputs``' int8 draw of 1034
+    elements is a case where max|x| * fl(1/127) lands one ulp lower, which
+    an XLA that divides by a constant through its reciprocal returns."""
+    rng = np.random.default_rng(m)
+    rng.standard_normal(m)                       # the accumulator's draw
+    x = rng.standard_normal(m).astype(np.float32)
+    amax = np.abs(x).max()
+    want = amax / np.float32(127.0)
+    for impl in ("ref", "cuda"):
+        _, scale = ops.quantize_stage(torch.from_numpy(x), impl=impl)
+        assert float(scale) == float(want)
+    by_reciprocal = amax * (np.float32(1.0) / np.float32(127.0))
+    assert (float(by_reciprocal) != float(want)) == (m == 1034)
+
+
 @pytest.mark.parametrize("m", [63, 640, 2049, "half"])
 def test_quantize_dequantize_stage_matches_jax(m):
     if m == "half":
@@ -348,5 +366,41 @@ def test_stage_kernels_match_plain_on_card(m):
     for dt in (torch.float32, torch.bfloat16):
         assert torch.equal(stages.dequantize_wire(q, scale, dt),
                            ref.dequantize_stage(q, scale, dt))
+    torch.cuda.synchronize()
+    assert stages.fused_combine.launches == before + n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 1), (3, 3), (1, 3), (0, 3)])
+@pytest.mark.parametrize("m", [1, 17, 1031, (1 << 20) + 3])
+def test_fused_combine_on_misaligned_views_on_card(m, offsets):
+    """Ring chunks are views at any offset into a flat buffer: acc and got
+    at element offsets that misalign the 16-byte vectors, together and
+    against each other, bitwise against the plain version, in place too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    oa, og = offsets
+    rng = np.random.default_rng(m)
+    acc0 = torch.from_numpy(rng.standard_normal(m + 3).astype(np.float32))
+    got32 = torch.from_numpy(rng.standard_normal(m + 3).astype(np.float32))
+    q, q_scale = ops.quantize_stage(got32, impl="ref")
+    wires = {"fp32": (got32, None), "bf16": (got32.to(torch.bfloat16), None),
+             "int8": (q, q_scale)}
+    before = stages.fused_combine.launches
+    n = 0
+    for wire, (got0, scale) in wires.items():
+        got = got0.cuda()[og:og + m]
+        scale = None if scale is None else scale.cuda()
+        for a0 in (acc0.cuda(), acc0.cuda().to(torch.bfloat16)):
+            a = a0[oa:oa + m]
+            for accumulate in (True, False):
+                k = stages.fused_combine(a, got, scale,
+                                         accumulate=accumulate)
+                p = ref.combine_stage(a, got, scale, accumulate=accumulate)
+                assert torch.equal(k, p), (wire, a.dtype, accumulate)
+            inplace = a0.clone()[oa:oa + m]
+            stages.fused_combine(inplace, got, scale, out=inplace)
+            assert torch.equal(inplace, ref.combine_stage(a, got, scale))
+            n += 3
     torch.cuda.synchronize()
     assert stages.fused_combine.launches == before + n

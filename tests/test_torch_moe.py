@@ -33,6 +33,8 @@ The kernel runs only on the card (``-m cuda`` and ``chip_smoke.py``).
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -169,6 +171,51 @@ def test_argument_checks(case, match):
         kw["impl"] = "pallas"
     with pytest.raises(ValueError, match=match):
         ops.moe_gmm(x, w, **kw)
+
+
+def _views(E, C, K, N, dtype, offset, device="cpu", seed=12):
+    """x (E, C, K) and w (E, K, N) as contiguous views ``offset`` elements
+    into flat buffers whose bases are 16-byte aligned."""
+    x0, w0 = _xw(E, C, K, N, seed)
+    out = []
+    for a in (x0, w0):
+        buf = torch.zeros(a.size + offset, dtype=dtype, device=device)
+        assert buf.data_ptr() % 16 == 0
+        buf[offset:] = torch.from_numpy(a.reshape(-1)).to(dtype)
+        out.append(buf[offset:].view(a.shape))
+    return out
+
+
+@pytest.mark.parametrize("dtype,E,C,K,N,offset,want", [
+    (torch.float32, 1, 320, 2048, 1024, 0, "fma"),
+    (torch.float32, 2, 8, 64, 64, 0, "fma"),
+    (torch.bfloat16, 1, 320, 2048, 1024, 0, "wgmma"),
+    (torch.bfloat16, 1, 320, 1024, 2048, 0, "wgmma"),
+    (torch.bfloat16, 1, 8, 2048, 1024, 0, "wgmma_decode"),
+    (torch.bfloat16, 2, 1, 72, 200, 0, "wgmma_decode"),
+    (torch.bfloat16, 2, 9, 72, 200, 0, "wgmma"),
+    (torch.bfloat16, 3, 65, 72, 200, 8, "wgmma"),
+    (torch.bfloat16, 3, 8, 72, 200, 8, "wgmma_decode"),
+    (torch.bfloat16, 3, 65, 72, 200, 1, "mma_sync"),
+    (torch.bfloat16, 3, 8, 72, 200, 3, "mma_sync"),
+    (torch.bfloat16, 2, 2, 7, 5, 0, "mma_sync"),
+    (torch.bfloat16, 2, 17, 33, 130, 0, "mma_sync"),
+    (torch.bfloat16, 2, 16, 64, 130, 0, "mma_sync"),
+    (torch.bfloat16, 2, 16, 0, 64, 0, "mma_sync"),
+])
+def test_route_follows_dtype_shape_and_alignment(dtype, E, C, K, N, offset,
+                                                 want):
+    x, w = _views(E, C, K, N, dtype, offset)
+    assert mg.route(x, w) == want
+    assert want in mg.ROUTES
+
+
+def test_decode_rows_match_the_kernel_tile():
+    """The wrapper sends C <= DECODE_ROWS to the decode route, whose tile
+    the kernel sizes by its own constant and refuses larger C with."""
+    src = (Path(mg.__file__).parent / "csrc" / "moe_gmm.cu").read_text()
+    found = re.findall(r"constexpr int kDecodeRows = (\d+);", src)
+    assert found == [str(mg.DECODE_ROWS)]
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +492,36 @@ def test_kernel_matches_plain_on_card(E, C, K, N, dtype):
     scale = want.float().abs().max().item()
     assert err <= (2e-2 if dtype == "bfloat16" else 2e-5) * scale, \
         (err, scale)
+
+
+# The edges of the wgmma route's tiles (C across the 8 rows of x of the
+# decode tile and the 160 of the prefill tile, K and N multiples of 8 but
+# not of the 64-deep stage or the 128- and 256-column tiles of w, one
+# expert), at views 16-byte aligned (offset 0 and 8: the wgmma routes) and
+# not (offset 1: mma_sync).
+EDGE_SHAPES = [(2, C, 72, 200) for C in (1, 8, 9, 63, 64, 65, 159, 160, 161,
+                                         319, 320, 321)] + [
+    (3, 65, 72, 200), (2, 320, 1032, 136), (1, 320, 2048, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 8, 1])
+@pytest.mark.parametrize("E,C,K,N", EDGE_SHAPES)
+def test_route_edges_match_plain_on_card(E, C, K, N, offset):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    x, w = _views(E, C, K, N, torch.bfloat16, offset, device="cuda")
+    assert (mg.route(x, w) == "mma_sync") == (offset == 1)
+    before = mg.moe_gmm.launches
+    got = mg.moe_gmm(x, w)
+    again = mg.moe_gmm(x, w)
+    want = ref.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert mg.moe_gmm.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (E, C, N)
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()), atol=2e-2,
+                               rtol=2e-2)
 
 
 @pytest.mark.cuda
