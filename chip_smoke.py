@@ -85,13 +85,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
     with the achieved TFLOP/s and ``bound_ms / ms``.
 13. ``mamba2_ssd`` against its plain version on the card: the JAX
     package's kernel-test shapes, p = n = 8, smoke zamba2-2.7b's prefill,
-    p = n = 128 at chunk 256 and a chunk of 12, in fp32 and bf16, from a
-    zero and a random initial state — y within 2e-5 (fp32) and 2e-2
-    (bf16), the state within 1e-3, two calls bitwise equal; s = 24 and 12
-    through ``ops.mamba2_ssd`` (padding, a short chunk); two halves chained
-    through the final state equal the whole; zamba2-2.7b's prefill shape
-    x (1, 2048, 80, 64), B/C (1, 2048, 64), chunk 256, in fp32 and bf16,
-    each error stated as max|diff| / max|plain|.
+    p = n = 128 at chunk 256 and a chunk of 12, in fp32 and bf16, the
+    bf16 ``wgmma`` route's edges (n = 16, 48, 80, 96, 112, p = 128 with
+    narrow n, chunks of 64-256, b = 2) and an unaligned bf16 view of x, from
+    a zero and a random initial state — y within 2e-5 (fp32) and 2e-2
+    (bf16), the state within 1e-3, two calls bitwise equal, each case
+    launched on the route ``mamba2_ssd.route`` names (logged; zamba2's and
+    p = n = 128's bf16 cases on ``wgmma``; both routes must run); s = 24
+    and 12 through ``ops.mamba2_ssd`` (padding, a short chunk); two halves
+    chained through the final state equal the whole, in fp32 and in bf16 on
+    the ``wgmma`` route; zamba2-2.7b's prefill shape x (1, 2048, 80, 64),
+    B/C (1, 2048, 64), chunk 256, in fp32 and bf16, each error stated as
+    max|diff| / max|plain|.
 14. The zamba2 serving path: zamba2-2.7b at full width and depth
     (2,435,777,440 parameters: 54 Mamba2 blocks and one shared attention
     block called after every sixth), as phase 11 — identical streams on
@@ -99,8 +104,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``flash_attention`` 9 x 4 times per leg (prefill only), one request on
     the plain versions (``ssd_impl="ref"``, ``attn_impl="ref"``) within
     ``SERVE_LOGIT_RTOL``.
-15. Timing of ``mamba2_ssd`` at zamba2's prefill shape, as in phase 5 (no
-    PyTorch call computes the scan: ``library_ms`` is null).
+15. Timing of ``mamba2_ssd`` at zamba2's prefill shape on the ``wgmma``
+    route, as in phase 5 (no PyTorch call computes the scan:
+    ``library_ms`` is null), with the achieved TFLOP/s and ``bound_ms /
+    ms``, and of the ``fma`` route at the same shape (x at an element
+    offset of 1).
 16. ``mlstm_chunk`` against its plain version on the card: the JAX
     package's kernel-test shapes, smoke xlstm-350m's prefill at the
     serving CLI's default prompt of 32, d = 512 at chunk 256 and a chunk of
@@ -1226,6 +1234,15 @@ SSD_CASES = (
     (1, 12, 2, 64, 16, 12),
 )
 ZAMBA_SSD = (1, 2048, 80, 64, 64, 256)
+# bf16 only: the edges of the wgmma route (n not a multiple of 64 under the
+# 32-byte swizzle, p = 128 with narrow n, chunks of 64, 128 and 192, b = 2).
+SSD_WGMMA_CASES = (
+    (1, 512, 3, 64, 80, 128),
+    (2, 384, 2, 128, 48, 192),
+    (1, 128, 2, 64, 16, 64),
+    (1, 192, 2, 64, 112, 64),
+    (1, 256, 2, 128, 96, 256),
+)
 # y as tests/test_kernels.py's _tol states it (atol = rtol), the state as
 # its 1e-3; at zamba2's shape each as max|diff| / max|plain|.
 SSD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1252,26 +1269,47 @@ def _ssd_inputs(case, dtype, device, seed):
 def check_mamba2_ssd(ssd, ref, device) -> float:
     """Phase 13: the kernel against its plain version on the card at every
     shape, in fp32 and bf16, from a zero and a random initial state, and
-    bitwise repeatable; any s through ``ops.mamba2_ssd`` (s = 24 pads to
-    32, s = 12 runs a chunk of 12); two halves chained through the final
-    state equal the whole; zamba2's prefill shape.  Returns the largest
-    |kernel - plain| of y at zamba2's shape (bf16)."""
+    bitwise repeatable, each case on the route ``ssd.route`` names (logged;
+    zamba2's and p = n = 128's bf16 cases on ``wgmma``, both routes run);
+    the wgmma route's edge cases and an unaligned bf16 view (``fma``); any
+    s through ``ops.mamba2_ssd`` (s = 24 pads to 32, s = 12 runs a chunk of
+    12); two halves chained through the final state equal the whole, in
+    fp32 and on the wgmma route; zamba2's prefill shape.  Returns the
+    largest |kernel - plain| of y at zamba2's shape (bf16)."""
     import torch
     from repro_torch.kernels import ops
     worst = 0.0
+    ran = dict.fromkeys(ssd.ROUTES, 0)
     cases = [(c, dt) for dt in ("float32", "bfloat16") for c in SSD_CASES]
+    cases += [(c, "bfloat16") for c in SSD_WGMMA_CASES]
     cases += [(ZAMBA_SSD, "float32"), (ZAMBA_SSD, "bfloat16")]
+    cases += [(SSD_CASES[1] + ("view",), "bfloat16")]
     for case, dt in cases:
-        b, s, h, p, n, chunk = case
-        args = _ssd_inputs(case, getattr(torch, dt), device, seed=sum(case))
+        b, s, h, p, n, chunk = case[:6]
+        args = _ssd_inputs(case, getattr(torch, dt), device, seed=sum(case[:6]))
+        if case[6:] == ("view",):       # x at an element offset of 1
+            buf = torch.empty(args[0].numel() + 1, dtype=args[0].dtype,
+                              device=device)
+            args = (buf[1:].view(args[0].shape).copy_(args[0]),) + args[1:]
+        which = ssd.route(args[0], args[3], chunk, args[4])
+        if (dt == "bfloat16" and case in (ZAMBA_SSD, SSD_CASES[5])
+                and which != "wgmma"):
+            raise AssertionError(f"mamba2_ssd {case}: route {which}, not "
+                                 f"wgmma")
         init = torch.randn((b, h, p, n), device=device)
         for ini in (None, init):
+            before = dict(ssd.mamba2_ssd.route_launches)
             y, st = ssd.mamba2_ssd(*args, chunk=chunk, init_state=ini)
             y2, st2 = ssd.mamba2_ssd(*args, chunk=chunk, init_state=ini)
             yp, sp = ref.ssd_chunked(*args, chunk=chunk, init_state=ini)
             torch.cuda.synchronize()
-            tag = (f"mamba2_ssd {dt} {case} "
+            tag = (f"mamba2_ssd {dt} {case} route {which}, "
                    f"{'zero' if ini is None else 'random'} initial state")
+            if {k: v - before[k] for k, v in
+                    ssd.mamba2_ssd.route_launches.items()} != {
+                        k: 2 * (k == which) for k in ssd.ROUTES}:
+                raise AssertionError(f"{tag}: launched on another route")
+            ran[which] += 2
             if y.dtype != args[0].dtype or y.shape != args[0].shape or \
                     st.dtype != torch.float32 or st.shape != (b, h, p, n):
                 raise AssertionError(f"{tag}: results {y.dtype} "
@@ -1303,6 +1341,9 @@ def check_mamba2_ssd(ssd, ref, device) -> float:
             log(f"{tag}: max |kernel - plain| y {ey:.3g} (atol = rtol = "
                 f"{tol}), state {es:.3g} ({SSD_STATE_TOL}), two calls "
                 f"bitwise equal")
+    if not all(ran.values()):
+        raise AssertionError(f"mamba2_ssd: a route never ran: {ran}")
+    log(f"mamba2_ssd launches by route in the checks: {ran}")
     for s in (24, 12):
         args = _ssd_inputs((2, s, 4, 32, 16), torch.float32, device, seed=s)
         before = ssd.mamba2_ssd.launches
@@ -1336,6 +1377,29 @@ def check_mamba2_ssd(ssd, ref, device) -> float:
                              "the whole")
     log("mamba2_ssd: two halves chained through the final state equal the "
         "whole (2e-5 y, 1e-4 state)")
+    x, dt, A, B, C = _ssd_inputs((1, 1024, 4, 64, 64), torch.bfloat16, device,
+                                 seed=4)
+    y_full, st_full = ssd.mamba2_ssd(x, dt, A, B, C, chunk=256)
+    halves = [[t[:, k:k + 512].contiguous() for t in (x, dt, B, C)]
+              for k in (0, 512)]
+    if any(ssd.route(hx, hB, 256, hC) != "wgmma" for hx, _, hB, hC in halves):
+        raise AssertionError("mamba2_ssd: a chained half is off the wgmma "
+                             "route")
+    (x1, dt1, B1, C1), (x2, dt2, B2, C2) = halves
+    y1, st1 = ssd.mamba2_ssd(x1, dt1, A, B1, C1, chunk=256)
+    y2, st2 = ssd.mamba2_ssd(x2, dt2, A, B2, C2, chunk=256, init_state=st1)
+    torch.cuda.synchronize()
+    ey = _max_abs_diff(torch.cat([y1, y2], 1), y_full)
+    es = _max_abs_diff(st2, st_full)
+    if not (torch.allclose(torch.cat([y1, y2], 1).float(), y_full.float(),
+                           atol=2e-2, rtol=2e-2)
+            and torch.allclose(st2, st_full, atol=SSD_STATE_TOL,
+                               rtol=SSD_STATE_TOL)):
+        raise AssertionError(f"mamba2_ssd wgmma: two chained halves differ "
+                             f"from the whole (y {ey}, state {es})")
+    log(f"mamba2_ssd wgmma bf16: two halves chained through the final state "
+        f"equal the whole within 2e-2 (y, max |diff| {ey:.3g}) and "
+        f"{SSD_STATE_TOL} (state, {es:.3g})")
     return worst
 
 
@@ -1347,11 +1411,22 @@ def time_mamba2_ssd(ssd, ref, device) -> dict:
     (x, dt, B, C, A, y and the final state; no initial state on the
     prefill path) and the work of the lower triangles: per (chunk, head)
     C B^T and its product with x dt over l(l+1)/2 entries, the carried
-    state's term and the state update, 2 FLOP per multiply-add."""
+    state's term and the state update, 2 FLOP per multiply-add.  The
+    ``fma`` route is timed at the same shape too, on x at an element
+    offset of 1 (logged only: the served calls take ``wgmma``)."""
     import torch
     b, s, h, p, n, chunk = ZAMBA_SSD
     ring = [_ssd_inputs(ZAMBA_SSD, torch.bfloat16, device, seed=60 + i)
             for i in range(4)]
+    views = []
+    for x, *rest in ring:
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+        views.append((buf[1:].view(x.shape).copy_(x), *rest))
+    if ssd.route(views[0][0], views[0][3], chunk, views[0][4]) != "fma":
+        raise AssertionError("mamba2_ssd: the unaligned view is not on fma")
+    fma_ms = graph_ms(lambda i: ssd.mamba2_ssd(*views[i % 4], chunk=chunk),
+                      8)
+    del views
     t = {"ms": graph_ms(lambda i: ssd.mamba2_ssd(*ring[i % 4], chunk=chunk),
                         8),
          "plain_ms": graph_ms(lambda i: ref.ssd_chunked(*ring[i % 4],
@@ -1367,10 +1442,14 @@ def time_mamba2_ssd(ssd, ref, device) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t["bound_ms"] = max(t_ops, t_bytes)
     t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"mamba2_ssd {ZAMBA_SSD} bf16: device {t['ms']:.6f} ms (plain "
-        f"{t['plain_ms']:.6f}, no library call), eager wrapper "
-        f"{t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms "
-        f"({t['bound_by']}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+    log(f"mamba2_ssd {ZAMBA_SSD} bf16, route "
+        f"{ssd.route(ring[0][0], ring[0][3], chunk, ring[0][4])}: device "
+        f"{t['ms']:.6f} ms (plain {t['plain_ms']:.6f}, no library call), "
+        f"eager wrapper {t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); "
+        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s, bound / ms "
+        f"{t['bound_ms'] / t['ms']:.4f}; the fma route at the same shape "
+        f"{fma_ms:.6f} ms")
     return t
 
 
@@ -1909,7 +1988,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
         "replaces": "src/repro/kernels/mamba2_ssd.py:79",
         "launches": zserve["launches"]["mamba2_ssd"], "max_abs_err": ssd_err,
-        **ssd_t})
+        **ssd_t, "design": "wgmma+tma"})
     kernels.append({
         "name": "mlstm_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",

@@ -36,7 +36,7 @@ from ..serving import Request
 from ..serving.lm import LMAdapter
 
 # device activity kinds, by a substring of the kernel's name
-KINDS = (("moe_gmm", "moe_gmm_"), ("mamba2_ssd", "mamba2_ssd_kernel"),
+KINDS = (("moe_gmm", "moe_gmm_"), ("mamba2_ssd", "mamba2_ssd_"),
          ("mlstm_chunk", "mlstm_chunk_kernel"),
          ("flash_attention", "flash_attention_"),   # fp32 and bf16 kernels
          ("matmul", "nvjet"), ("matmul", "gemm"), ("matmul", "sm90_xmma"),

@@ -53,8 +53,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "mamba2_ssd": {
         # (x, dt, A, B, C, init or NULL, y, final state, b, s, h, p, n,
-        #  chunk, dtype, stream)
-        "mamba2_ssd_fwd": ((_P,) * 8 + (_I,) * 7 + (_P,), _I),
+        #  chunk, dtype, route, chunk states, cums, carried states (the
+        #  last three NULL on the fma route), stream)
+        "mamba2_ssd_fwd": ((_P,) * 8 + (_I,) * 8 + (_P,) * 4, _I),
     },
     "mlstm_chunk": {
         # (q, k, v, i gate, f gate, y, C, n, m, b, s, h, d, chunk, dtype,

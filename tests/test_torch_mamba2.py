@@ -15,6 +15,11 @@ terms up to ~50 that cancel leave elements near 0 with absolute errors of
 ~1e-4 (measured: at most 1.6e-4, below 3e-6 of the largest |y|).  Within
 the port (chaining, the stepwise oracle) the JAX test's own bounds hold.
 The kernel runs only on the card (``-m cuda`` and ``chip_smoke.py``).
+Its bf16 ``"wgmma"`` route feeds the tensor cores three operands that the
+plain version keeps in fp32 -- P = (C B^T) o L o dt, the carried state and
+the chunk-state operand x o w o dt -- each as a bf16 hi + lo pair;
+``_wgmma_emulation`` repeats those roundings in fp32 torch and is held to
+the kernel's gates (y 2e-2, the state 1e-3) against both packages here.
 """
 
 import jax.numpy as jnp
@@ -214,6 +219,143 @@ def test_unknown_impl_raises():
                        impl="pallas")
 
 
+def _route_args(dtype=torch.bfloat16, p=64, n=64, s=256, offset=0,
+                which="x"):
+    """x (1, s, 2, p), B and C (1, s, n) for :func:`ssd.route`; ``which``
+    of them a view ``offset`` elements into a larger buffer."""
+    def make(shape, name):
+        if name != which or not offset:
+            return torch.empty(shape, dtype=dtype)
+        count = int(np.prod(shape))
+        return torch.empty(count + offset, dtype=dtype)[offset:].view(shape)
+    return make((1, s, 2, p), "x"), make((1, s, n), "B"), make((1, s, n), "C")
+
+
+@pytest.mark.parametrize("case,want", [
+    (dict(), "wgmma"),                              # zamba2's p = n = 64
+    (dict(p=128, n=128), "wgmma"),                  # CARD_SHAPES' widest
+    (dict(n=16, chunk=64), "wgmma"),
+    (dict(n=80, chunk=128), "wgmma"),
+    (dict(p=128, n=48, chunk=192), "wgmma"),
+    (dict(s=128), "wgmma"),                         # chunk = min(256, s)
+    (dict(dtype=torch.float32), "fma"),
+    (dict(p=32), "fma"),
+    (dict(p=16, n=16, chunk=64), "fma"),
+    (dict(n=8), "fma"),
+    (dict(n=24), "fma"),
+    (dict(n=256), "fma"),
+    (dict(chunk=32), "fma"),
+    (dict(chunk=96), "fma"),
+    (dict(chunk=512, s=1024), "fma"),               # above MAX_CHUNK
+    (dict(offset=1), "fma"),                        # x misaligned
+    (dict(offset=8), "wgmma"),                      # 16 bytes in: aligned
+    (dict(offset=1, which="B"), "fma"),
+    (dict(offset=4, which="C"), "fma"),
+])
+def test_route(case, want):
+    """The route follows dtype, shape and alignment alone (CPU tensors:
+    ``route`` reads only dtype, shape and ``data_ptr``)."""
+    case = dict(case)
+    chunk = case.pop("chunk", 256)
+    x, B, C = _route_args(**case)
+    assert ssd.route(x, B, chunk, C) == want
+
+
+def _bf16_pair(v, split=True):
+    """v as the tensor cores take it: bf16 hi + lo (or hi alone)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float() if split else hi
+
+
+def _wgmma_emulation(x, dt, A, B, C, chunk, init_state=None,
+                     split=("chunk", "state", "P")):
+    """The ``"wgmma"`` route's arithmetic in fp32 torch with its bf16
+    operands: the chunk states x^T (w o dt) . B from the operand x o w o dt
+    (w = exp(cums_l - cums)), C . state^T from the carried state, P . x
+    from P = (C B^T) o L o dt, each operand a bf16 hi + lo pair (or, left
+    out of ``split``, rounded once); y rounded once."""
+    b, s, h, p = x.shape
+    n, nc = B.shape[-1], s // chunk
+    xc = x.float().reshape(b, nc, chunk, h, p)
+    Bc = B.float().reshape(b, nc, chunk, n)
+    Cc = C.float().reshape(b, nc, chunk, n)
+    dtc = dt.float().reshape(b, nc, chunk, h).permute(0, 3, 1, 2)  # b h c l
+    dA = dtc * A.float()[None, :, None, None]
+    cums = ref._block_cumsum(dA)
+    v = xc * (torch.exp(cums[..., -1:] - cums) * dtc).permute(0, 2, 3, 1)[
+        ..., None]
+    chunk_states = torch.einsum("bclhp,bcln->bchpn",
+                                _bf16_pair(v, "chunk" in split), Bc)
+    state = (torch.zeros((b, h, p, n)) if init_state is None
+             else init_state.float())
+    carried = []
+    for c in range(nc):
+        carried.append(state)
+        state = state * torch.exp(cums[:, :, c, -1])[..., None, None] \
+            + chunk_states[:, c]
+    carried = _bf16_pair(torch.stack(carried, 1), "state" in split)
+    S = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    P = _bf16_pair(S[:, None] * torch.exp(ref._segsum(dA))
+                   * dtc[..., None, :], "P" in split)          # b h c i j
+    y = torch.einsum("bhcij,bcjhp->bcihp", P, xc) + torch.einsum(
+        "bcin,bchpn->bcihp", Cc, carried) * torch.exp(cums).permute(
+            0, 2, 3, 1)[..., None]
+    return y.reshape(b, s, h, p).to(x.dtype), state
+
+
+def _rel(got, want):
+    """max |got - want| / max |want| (the served-shape gates' measure)."""
+    got, want = _f32(got), _f32(want)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _allclose(got, want, tol):
+    return np.allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 512, 4, 64, 64, 256),       # zamba2's widths
+    (1, 512, 2, 128, 128, 256),     # CARD_SHAPES' widest
+])
+def test_wgmma_emulation_within_gates(b, s, h, p, n, chunk, init):
+    """The wgmma route's roundings keep y within the bf16 gate (2e-2, atol
+    = rtol, and as max|diff| / max|plain|) and the final state within 1e-3
+    of the port's plain scan and of the JAX oracle, on the same inputs."""
+    arrs = _inputs(b, s, h, p, n, seed=s + p + n)
+    args = _torch(arrs, torch.bfloat16)
+    init_state = None
+    if init:
+        init_state = torch.from_numpy(np.random.default_rng(12).standard_normal(
+            (b, h, p, n)).astype(np.float32))
+    y, st = _wgmma_emulation(*args, chunk, init_state)
+    yp, sp = ref.ssd_chunked(*args, chunk=chunk, init_state=init_state)
+    jy, jst = jax_ref.ssd_chunked(
+        *_jax(arrs, jnp.bfloat16), chunk=chunk,
+        init_state=None if init_state is None else jnp.asarray(
+            init_state.numpy()))
+    for against, (wy, wst) in (("the plain scan", (yp, sp)),
+                               ("the JAX oracle", (jy, jst))):
+        assert _allclose(y, wy, 2e-2), (against, _rel(y, wy))
+        assert _rel(y, wy) <= 2e-2, (against, _rel(y, wy))
+        assert _allclose(st, wst, 1e-3), (against, _rel(st, wst))
+        assert _rel(st, wst) <= 1e-3, (against, _rel(st, wst))
+
+
+def test_wgmma_splits_are_needed():
+    """Why each tensor-core operand is a hi + lo pair: with the chunk-state
+    operand rounded once the final state misses its 1e-3 gate; with P and
+    the carried state rounded once y misses its elementwise 2e-2 gate."""
+    args = _torch(_inputs(1, 256, 2, 64, 64, seed=9), torch.bfloat16)
+    yp, sp = ref.ssd_chunked(*args, chunk=64)
+    y, st = _wgmma_emulation(*args, 64)
+    assert _allclose(y, yp, 2e-2) and _rel(st, sp) < 1e-4
+    _, st1 = _wgmma_emulation(*args, 64, split=("state", "P"))
+    assert _rel(st1, sp) > 1e-3
+    y1, _ = _wgmma_emulation(*args, 64, split=("chunk",))
+    assert not _allclose(y1, yp, 2e-2)
+
+
 CARD_SHAPES = SHAPES + [
     (2, 64, 2, 8, 8, 16),       # p = n = 8 at chunk 16
     (1, 48, 2, 64, 16, 16),     # smoke zamba2's SSD
@@ -233,12 +375,17 @@ def test_kernel_matches_plain_on_card(b, s, h, p, n, chunk, dtype):
     args = [t.cuda() for t in _torch(arrs, tdt)]
     init = torch.from_numpy(np.random.default_rng(10).standard_normal(
         (b, h, p, n)).astype(np.float32)).cuda()
+    which = ssd.route(args[0], args[3], chunk, args[4])
+    assert which == ("wgmma" if dtype == "bfloat16" and p in (64, 128)
+                     and chunk % 64 == 0 else "fma")
     before = ssd.mamba2_ssd.launches
+    routed = ssd.mamba2_ssd.route_launches[which]
     y, st = ssd.mamba2_ssd(*args, chunk=chunk, init_state=init)
     y2, st2 = ssd.mamba2_ssd(*args, chunk=chunk, init_state=init)
     want_y, want_st = ref.ssd_chunked(*args, chunk=chunk, init_state=init)
     torch.cuda.synchronize()
     assert ssd.mamba2_ssd.launches == before + 2
+    assert ssd.mamba2_ssd.route_launches[which] == routed + 2
     assert torch.equal(y, y2) and torch.equal(st, st2)
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     np.testing.assert_allclose(_f32(y.cpu()), _f32(want_y.cpu()), atol=tol,
@@ -265,3 +412,59 @@ def test_kernel_argument_checks_on_card(case, err, match):
         A = A.double()
     with pytest.raises(err, match=match):
         ssd.mamba2_ssd(x, dt, A, B, C, chunk=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 2048, 80, 64, 64, 256),     # zamba2-2.7b's prefill
+    (1, 512, 2, 128, 128, 256),
+])
+def test_wgmma_route_matches_plain_on_card(b, s, h, p, n, chunk, init):
+    """The bf16 wgmma route at zamba2's shape and at p = n = 128, from a
+    zero and a random initial state: y within 2e-2 (atol = rtol, and as
+    max|diff| / max|plain|), the state within 1e-3, two calls bitwise
+    equal, and the launches counted on that route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = [t.cuda() for t in _torch(_inputs(b, s, h, p, n, seed=14),
+                                      torch.bfloat16)]
+    init_state = None
+    if init:
+        init_state = torch.from_numpy(np.random.default_rng(15).standard_normal(
+            (b, h, p, n)).astype(np.float32)).cuda()
+    assert ssd.route(args[0], args[3], chunk, args[4]) == "wgmma"
+    routed = ssd.mamba2_ssd.route_launches["wgmma"]
+    y, st = ssd.mamba2_ssd(*args, chunk=chunk, init_state=init_state)
+    y2, st2 = ssd.mamba2_ssd(*args, chunk=chunk, init_state=init_state)
+    want_y, want_st = ref.ssd_chunked(*args, chunk=chunk,
+                                      init_state=init_state)
+    torch.cuda.synchronize()
+    assert ssd.mamba2_ssd.route_launches["wgmma"] == routed + 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    y, want_y, st, want_st = (t.cpu() for t in (y, want_y, st, want_st))
+    assert _allclose(y, want_y, 2e-2) and _rel(y, want_y) <= 2e-2
+    assert _allclose(st, want_st, 1e-3) and _rel(st, want_st) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_wgmma_chained_halves_on_card():
+    """Two bf16 halves on the wgmma route, the second from the first's
+    final state, equal the whole within the gates (y 2e-2, state 1e-3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    x, dt, A, B, C = (t.cuda() for t in _torch(
+        _inputs(1, 1024, 4, 64, 64, seed=16), torch.bfloat16))
+    halves = [(x[:, k:k + 512].contiguous(), dt[:, k:k + 512].contiguous(),
+               B[:, k:k + 512].contiguous(), C[:, k:k + 512].contiguous())
+              for k in (0, 512)]
+    assert all(ssd.route(hx, hB, 256, hC) == "wgmma"
+               for hx, _, hB, hC in halves)
+    y_full, st_full = ssd.mamba2_ssd(x, dt, A, B, C, chunk=256)
+    (x1, dt1, B1, C1), (x2, dt2, B2, C2) = halves
+    y1, st1 = ssd.mamba2_ssd(x1, dt1, A, B1, C1, chunk=256)
+    y2, st2 = ssd.mamba2_ssd(x2, dt2, A, B2, C2, chunk=256, init_state=st1)
+    torch.cuda.synchronize()
+    y = torch.cat([y1, y2], 1).cpu()
+    assert _allclose(y, y_full.cpu(), 2e-2)
+    assert _allclose(st2.cpu(), st_full.cpu(), 1e-3)
