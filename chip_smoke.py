@@ -112,24 +112,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
 16. ``mlstm_chunk`` against its plain version on the card: the JAX
     package's kernel-test shapes, smoke xlstm-350m's prefill at the
     serving CLI's default prompt of 32, d = 512 at chunk 256 and a chunk of
-    12, in fp32 and bf16 — y within 2e-5 (fp32) and 2e-2 (bf16), C and n
-    within 2e-4 (fp32) and 2e-2 (bf16) absolute with 2e-2 relative, m
-    within 1e-3, two calls bitwise equal; s = 24 through
+    12, in fp32 and bf16, and the bf16 ``wgmma`` route's edges (d = 64,
+    128, 192, 448 and 512, chunks of 64-256, s of one chunk and of
+    several, b = 2, one and four heads) — y within 2e-5 (fp32) and 2e-2
+    (bf16), C and n within 2e-4 (fp32) and 2e-2 (bf16) absolute with 2e-2
+    relative, m within 1e-3, two calls bitwise equal, each case launched
+    on the route ``mlstm_chunk.route`` names (logged; both routes must
+    run); an unaligned bf16 view of q, which ``route`` sends to ``fma``
+    and the wrapper refuses before any launch; s = 24 through
     ``ops.mlstm_chunked`` (padding); xlstm-350m's prefill shape (1, 2048,
-    4, 512), chunk 256, in fp32 and bf16, each error stated as max|diff| /
-    max|plain|.
+    4, 512), chunk 256, in fp32 and bf16 (bf16 on ``wgmma``), each error
+    stated as max|diff| / max|plain|.
 17. The xlstm serving path: xlstm-350m at full width and depth
     (491,908,240 parameters: 18 mLSTM and 6 sLSTM blocks), as phase 11 —
     identical streams on both legs, ``mlstm_chunk`` launched exactly
-    18 x 4 times per leg (prefill only).  The bf16 model turns a one-ulp
+    18 x 4 times per leg (prefill only), every launch on ``wgmma``.  The bf16 model turns a one-ulp
     difference anywhere into O(1) differences in the logits, so the plain
     version (``mlstm_impl="ref"``) is held block by block in bf16 (each
     mLSTM block alone on the plain path's input to it, within 2e-2), and
     as a whole on an fp32 copy of the same weights, with phase 11's gates
     (prefill logits within ``SERVE_LOGIT_RTOL``, first token); the bf16
     whole-model difference is reported beside a one-ulp baseline.
-18. Timing of ``mlstm_chunk`` at xlstm's prefill shape, as in phase 5 (no
-    PyTorch call computes the chunked mLSTM: ``library_ms`` is null).
+18. Timing of ``mlstm_chunk`` at xlstm's prefill shape on the ``wgmma``
+    route, as in phase 5 (no PyTorch call computes the chunked mLSTM:
+    ``library_ms`` is null), with the achieved TFLOP/s and ``bound_ms /
+    ms``, and of the ``fma`` route at the same shape (through the C entry
+    point's route code).
 19. ``moe_gmm`` against its plain version on the card: the JAX package's
     kernel-test shapes (E, C, K, N), ragged C, K and N down to C = 2,
     olmoe-1b-7b's decode shapes (64, 8, 2048, 1024) and (64, 8, 1024, 2048)
@@ -934,7 +942,7 @@ def check_flash_attention(fa, ref, device) -> float:
 
 def serving_main_path(arch: str, n_params: int, width: tuple,
                       kernels: dict, plain: dict, device,
-                      compare=None) -> dict:
+                      compare=None, routes=None) -> dict:
     """Phases 11, 14, 17 and 20: ``arch`` at full width and depth
     (``width`` is its (n_layers, d_model, n_heads, n_kv_heads)) served
     through the port's engine on both completion legs.  ``kernels`` maps
@@ -943,8 +951,10 @@ def serving_main_path(arch: str, n_params: int, width: tuple,
     once a block, ``moe_gmm`` in prefill and every decode step); ``plain``
     names the ``*_impl`` arguments that put one request on the plain
     versions, and ``compare`` (default :func:`compare_with_plain`) holds
-    the kernel path against them.  Returns what the run measured and each
-    kernel's launches over both legs."""
+    the kernel path against them.  ``routes`` maps a kernel with
+    ``route_launches`` to the route every launch of a leg must take.
+    Returns what the run measured and each kernel's launches over both
+    legs."""
     import torch
     from repro_torch import configs
     from repro_torch.models import model as port_model
@@ -991,6 +1001,8 @@ def serving_main_path(arch: str, n_params: int, width: tuple,
         torch.cuda.reset_peak_memory_stats()
         for fn, _ in kernels.values():
             fn.launches = 0
+            if hasattr(fn, "route_launches"):
+                fn.route_launches = dict.fromkeys(fn.route_launches, 0)
         reqs = [Request(rid=i, prompt=1000 + i, gen_len=SERVE_GEN)
                 for i in range(SERVE_REQUESTS)]
         rep = ServingEngine(adapter, slots=SERVE_SLOTS, completion=leg,
@@ -1007,6 +1019,14 @@ def serving_main_path(arch: str, n_params: int, width: tuple,
                 raise AssertionError(f"{arch} {leg} leg: {name} launched {n} "
                                      f"times, expected {per_request} a "
                                      f"request x {SERVE_REQUESTS}")
+            if hasattr(fn, "route_launches"):
+                counts[name] = dict(fn.route_launches)
+                need = (routes or {}).get(name)
+                if need and fn.route_launches[need] != n:
+                    raise AssertionError(f"{arch} {leg} leg: {name} "
+                                         f"launches by route "
+                                         f"{fn.route_launches}, all {n} "
+                                         f"expected on {need}")
         for rid, toks in rep.outputs.items():
             if len(toks) != SERVE_GEN or not all(
                     0 <= t < cfg.vocab for t in toks):
@@ -1465,6 +1485,19 @@ MLSTM_CASES = (
     (1, 12, 2, 64, 12),
 )
 XLSTM_MLSTM = (1, 2048, 4, 512, 256)
+# The bf16 wgmma route's edges: d = 64 (column tiles of 64), 128, 192, 448
+# and 512; chunks of one to four 64-row slabs; s of one chunk and of
+# several; b = 2; one and four heads.
+MLSTM_WGMMA_CASES = (
+    (2, 64, 1, 64, 64),
+    (2, 512, 4, 64, 64),
+    (2, 128, 4, 128, 128),
+    (2, 1024, 1, 128, 128),
+    (2, 384, 2, 192, 192),
+    (2, 512, 2, 448, 128),
+    (2, 256, 1, 512, 256),
+    (2, 2048, 4, 512, 256),
+)
 # tests/test_kernels.py's bounds: y (atol = rtol), C and n (atol; rtol
 # 2e-2), m; at xlstm's shape each as max|diff| / max|plain|.
 MLSTM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1491,23 +1524,38 @@ def _mlstm_inputs(case, dtype, device, seed):
 
 def check_mlstm_chunk(mk, ref, device) -> float:
     """Phase 16: the kernel against its plain version on the card at every
-    shape, in fp32 and bf16, and bitwise repeatable; s = 24 through
+    shape, in fp32 and bf16, and bitwise repeatable, each case on the route
+    ``mk.route`` names (logged; xlstm's bf16 shape on ``wgmma``, both
+    routes run); the wgmma route's edge cases; an unaligned bf16 view of q
+    (``fma``, which the wrapper refuses: no launch); s = 24 through
     ``ops.mlstm_chunked`` (padding to the chunk of 16); xlstm's prefill
     shape.  Returns the largest |kernel - plain| of y at xlstm's shape
     (bf16)."""
     import torch
     from repro_torch.kernels import ops
     worst = 0.0
+    ran = dict.fromkeys(mk.ROUTES, 0)
     cases = [(c, dt) for dt in ("float32", "bfloat16") for c in MLSTM_CASES]
+    cases += [(c, "bfloat16") for c in MLSTM_WGMMA_CASES]
     cases += [(XLSTM_MLSTM, "float32"), (XLSTM_MLSTM, "bfloat16")]
     for case, dt in cases:
         b, s, h, d, chunk = case
         args = _mlstm_inputs(case, getattr(torch, dt), device, seed=sum(case))
+        which = mk.route(args[0], chunk, args[1], args[2])
+        if dt == "bfloat16" and case == XLSTM_MLSTM and which != "wgmma":
+            raise AssertionError(f"mlstm_chunk {case}: route {which}, not "
+                                 f"wgmma")
+        before = dict(mk.mlstm_chunk.route_launches)
         y, st = mk.mlstm_chunk(*args, chunk=chunk)
         y2, st2 = mk.mlstm_chunk(*args, chunk=chunk)
         yp, sp = ref.mlstm_chunked(*args, chunk=chunk)
         torch.cuda.synchronize()
-        tag = f"mlstm_chunk {dt} {case}"
+        tag = f"mlstm_chunk {dt} {case} route {which}"
+        if {k: n - before[k] for k, n in
+                mk.mlstm_chunk.route_launches.items()} != {
+                    k: 2 * (k == which) for k in mk.ROUTES}:
+            raise AssertionError(f"{tag}: launched on another route")
+        ran[which] += 2
         shapes = ((b, h, d, d), (b, h, d), (b, h))
         if y.dtype != args[0].dtype or y.shape != args[0].shape or any(
                 t.dtype != torch.float32 or t.shape != shp
@@ -1550,6 +1598,26 @@ def check_mlstm_chunk(mk, ref, device) -> float:
         log(f"{tag}: max |kernel - plain| y {ey:.3g} (atol = rtol = {tol}), "
             f"C {eC:.3g}, n {en:.3g} ({stol}), m {em:.3g}, two calls bitwise "
             f"equal")
+    if not all(ran.values()):
+        raise AssertionError(f"mlstm_chunk: a route never ran: {ran}")
+    log(f"mlstm_chunk launches by route in the checks: {ran}")
+    q, k, v, ig, fg = _mlstm_inputs((1, 512, 2, 128), torch.bfloat16, device,
+                                    seed=17)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=device)
+    qv = buf[1:].view(q.shape).copy_(q)     # q at an element offset of 1
+    before = dict(mk.mlstm_chunk.route_launches)
+    try:
+        mk.mlstm_chunk(qv, k, v, ig, fg, chunk=128)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("mlstm_chunk: an unaligned bf16 view ran")
+    if mk.route(qv, 128, k, v) != "fma" or \
+            mk.mlstm_chunk.route_launches != before:
+        raise AssertionError("mlstm_chunk: the unaligned bf16 view is not on "
+                             "fma, or launched")
+    log(f"mlstm_chunk bf16 q at an element offset of 1: route fma, refused "
+        f"before any launch ({refused})")
     args = _mlstm_inputs((2, 24, 4, 32), torch.float32, device, seed=24)
     before = mk.mlstm_chunk.launches
     y, st = ops.mlstm_chunked(*args, chunk=16)
@@ -1568,18 +1636,44 @@ def check_mlstm_chunk(mk, ref, device) -> float:
     return worst
 
 
+def _mlstm_fma(mk, args, chunk):
+    """One launch of the ``fma`` route on bf16 ``args``, through the C entry
+    point's route code: the wrapper sends an aligned bf16 call at xlstm's
+    shape to ``wgmma``, so this is how the other route is timed there."""
+    import torch
+    from repro_torch.kernels import build
+    q, k, v, ig, fg = args
+    b, s, h, d = q.shape
+    y = torch.empty_like(q)
+    out = [torch.empty(shape, dtype=torch.float32, device=q.device)
+           for shape in ((b, h, d, d), (b, h, d), (b, h))]
+    err = build.load("mlstm_chunk").mlstm_chunk_fwd(
+        *(t.data_ptr() for t in (q, k, v, ig, fg, y, *out)), b, s, h, d,
+        chunk, 1, mk.ROUTES.index("fma"), None, None,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "mlstm_chunk fma")
+    return y
+
+
 def time_mlstm_chunk(mk, ref, device) -> dict:
     """Phase 18: times per call at xlstm's prefill shape, bf16 (a ring of
-    four input sets, 101 MB, larger than the 50 MB L2), as in phase 5.  No
-    single PyTorch call computes the chunked mLSTM: ``library_ms`` is None.
-    The bound counts each input read once and each output written once
-    (q, k, v, the two gates, y and the final C, n, m) and the work of the
-    lower triangles: per (head, chunk) q k^T and S v over l(l+1)/2
-    entries, q C and the k^T v update, 2 FLOP per multiply-add."""
+    four input sets, 101 MB, larger than the 50 MB L2), as in phase 5, on
+    the route the wrapper takes there (``wgmma``).  No single PyTorch call
+    computes the chunked mLSTM: ``library_ms`` is None.  The bound counts
+    each input read once and each output written once (q, k, v, the two
+    gates, y and the final C, n, m) and the work of the lower triangles:
+    per (head, chunk) q k^T and S v over l(l+1)/2 entries, q C and the k^T
+    v update, 2 FLOP per multiply-add.  The ``fma`` route is timed at the
+    same shape too, through the C entry point (logged only: the served
+    calls take ``wgmma``)."""
     import torch
     b, s, h, d, chunk = XLSTM_MLSTM
     ring = [_mlstm_inputs(XLSTM_MLSTM, torch.bfloat16, device, seed=70 + i)
             for i in range(4)]
+    which = mk.route(ring[0][0], chunk, ring[0][1], ring[0][2])
+    if which != "wgmma":
+        raise AssertionError(f"mlstm_chunk {XLSTM_MLSTM}: route {which}")
+    fma_ms = graph_ms(lambda i: _mlstm_fma(mk, ring[i % 4], chunk), 8)
     t = {"ms": graph_ms(lambda i: mk.mlstm_chunk(*ring[i % 4], chunk=chunk),
                         8),
          "plain_ms": graph_ms(lambda i: ref.mlstm_chunked(*ring[i % 4],
@@ -1595,10 +1689,13 @@ def time_mlstm_chunk(mk, ref, device) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t["bound_ms"] = max(t_ops, t_bytes)
     t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"mlstm_chunk {XLSTM_MLSTM} bf16: device {t['ms']:.6f} ms (plain "
-        f"{t['plain_ms']:.6f}, no library call), eager wrapper "
-        f"{t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms "
-        f"({t['bound_by']}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+    log(f"mlstm_chunk {XLSTM_MLSTM} bf16, route {which}: device "
+        f"{t['ms']:.6f} ms (plain {t['plain_ms']:.6f}, no library call), "
+        f"eager wrapper {t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); "
+        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s, bound / ms "
+        f"{t['bound_ms'] / t['ms']:.4f}; the fma route at the same shape "
+        f"{fma_ms:.6f} ms")
     return t
 
 
@@ -1932,7 +2029,7 @@ def main() -> int:
     xserve = serving_main_path(
         "xlstm-350m", XLSTM_PARAMS, (24, 1024, 4, 4),
         {"mlstm_chunk": (mk.mlstm_chunk, 18)}, {"mlstm_impl": "ref"},
-        device, compare=compare_chaotic)
+        device, compare=compare_chaotic, routes={"mlstm_chunk": "wgmma"})
     freed("xlstm-350m", before)
     mlstm_t = time_mlstm_chunk(mk, ref, device)
 
@@ -1994,7 +2091,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_chunk.py:90",
         "launches": xserve["launches"]["mlstm_chunk"],
-        "max_abs_err": mlstm_err, **mlstm_t})
+        "max_abs_err": mlstm_err, **mlstm_t, "design": "wgmma+tma"})
     kernels.append({
         "name": "moe_gmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",

@@ -37,7 +37,7 @@ from ..serving.lm import LMAdapter
 
 # device activity kinds, by a substring of the kernel's name
 KINDS = (("moe_gmm", "moe_gmm_"), ("mamba2_ssd", "mamba2_ssd_"),
-         ("mlstm_chunk", "mlstm_chunk_kernel"),
+         ("mlstm_chunk", "mlstm_"),                 # both routes' kernels
          ("flash_attention", "flash_attention_"),   # fp32 and bf16 kernels
          ("matmul", "nvjet"), ("matmul", "gemm"), ("matmul", "sm90_xmma"),
          ("matmul", "cutlass"), ("elementwise", "elementwise_kernel"),

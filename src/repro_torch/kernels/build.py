@@ -59,8 +59,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "mlstm_chunk": {
         # (q, k, v, i gate, f gate, y, C, n, m, b, s, h, d, chunk, dtype,
-        #  stream)
-        "mlstm_chunk_fwd": ((_P,) * 9 + (_I,) * 6 + (_P,), _I),
+        #  route, fp32 scratch, carried states (the last two NULL on the
+        #  fma route), stream)
+        "mlstm_chunk_fwd": ((_P,) * 9 + (_I,) * 7 + (_P,) * 3, _I),
     },
     "moe_gmm": {
         # (x, w, out, E, C, K, N, route, stream)

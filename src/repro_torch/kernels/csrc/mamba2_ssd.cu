@@ -476,10 +476,6 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int rows,
       16, 8 * L::kRowBytes);
 }
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (hopper::smem_addr(p) & 1023)) & 1023);
-}
-
 // The inclusive cumsum of dt_j * a over the chunk into cums[0, l), in the
 // order of mamba2_ssd_kernel's scan (and ref._block_cumsum): a
 // Hillis-Steele scan within each group of 32 positions (one warp), then the
@@ -517,24 +513,6 @@ __device__ __forceinline__ void chunk_scan(const __nv_bfloat16* dt,
   __syncthreads();
 }
 
-// Four 8 x 8 b16 matrices from shared memory, transposed; lane l gives the
-// address of row l % 8 of matrix l / 8, register i holds matrix i.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Keeps the compiler from reusing a wgmma A fragment's registers before the
-// product that reads them has completed (wgmma reads them asynchronously).
-__device__ __forceinline__ void fence_frag(uint32_t (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
 // Pass 1.  Block ((b * nc + c) * H + h), one warpgroup per 64 rows p of
 // Sc = (x o w o dt)^T . B: A from registers -- x^T by ldmatrix.trans from
 // x's TMA tile, scaled by w_j dt_j and split into hi + lo bf16 -- and B
@@ -549,7 +527,7 @@ mamba2_ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap xmap,
   using L = Cols<N>;
   constexpr int kT = 2 * P;
   extern __shared__ uint8_t smem_ssd[];
-  uint8_t* xs = align1024(smem_ssd);          // [p slice][l rows][128 B]
+  uint8_t* xs = hopper::align1024(smem_ssd);          // [p slice][l rows][128 B]
   uint8_t* bsm = xs + (P / 64) * l * kXRowBytes;  // [slice][l rows][row B]
   float* cums = reinterpret_cast<float*>(bsm + l * N * 2);   // [kMaxChunk]
   float* wd = cums + kMaxChunk;               // dt_j, then w_j dt_j
@@ -606,7 +584,7 @@ mamba2_ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap xmap,
                   uint32_t (&phi)[4], uint32_t (&plo)[4]) {
     const int j = 16 * kk + jr;
     uint32_t raw[4];
-    ldmatrix_x4_trans(raw, xa + j * kXRowBytes + ((pc ^ (j % 8)) * 16));
+    hopper::ldmatrix_x4_trans(raw, xa + j * kXRowBytes + ((pc ^ (j % 8)) * 16));
     const float2 w[2] = {
         *reinterpret_cast<const float2*>(wd + 16 * kk + 2 * q),
         *reinterpret_cast<const float2*>(wd + 16 * kk + 8 + 2 * q)};
@@ -627,8 +605,8 @@ mamba2_ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap xmap,
     hopper::wgmma_rs_tb<N>(acc, lo, db);
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();
-    fence_frag(phi);
-    fence_frag(plo);
+    hopper::fence_frag(phi);
+    hopper::fence_frag(plo);
   };
   hopper::mbar_wait(bar, 0);
   for (int kk = 0; kk < l / 16; kk += 2) {      // l / 16 is even
@@ -637,8 +615,8 @@ mamba2_ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap xmap,
   }
   hopper::wgmma_wait<0>();
   hopper::fence_regs(acc);
-  fence_frag(hi1);
-  fence_frag(lo1);
+  hopper::fence_frag(hi1);
+  hopper::fence_frag(lo1);
 
   // acc[i]: p row 16 warp + lane / 4 + 8 ((i / 2) % 2) of the warpgroup's
   // 64, n column 8 (i / 4) + 2 q + i % 2
@@ -715,7 +693,7 @@ mamba2_ssd_chunk_out_kernel(const __grid_constant__ CUtensorMap cmap,
   using O = OutTile<P, N>;
   const int nb = l / kSlab;
   extern __shared__ uint8_t smem_ssd[];
-  uint8_t* cs = align1024(smem_ssd);  // [wg][slice][64 rows][row bytes]
+  uint8_t* cs = hopper::align1024(smem_ssd);  // [wg][slice][64 rows][row bytes]
   uint8_t* bs = cs + 2 * O::kCBSlab;      // [slab][slice][64 rows][row B]
   uint8_t* xs = bs + nb * O::kCBSlab;     // [slab][p slice][64 rows][128 B]
   uint8_t* st = xs + nb * O::kXSlab;      // [hi, lo][slice][P rows][row B]
@@ -882,8 +860,8 @@ mamba2_ssd_chunk_out_kernel(const __grid_constant__ CUtensorMap cmap,
       hopper::fence_regs(acc);
 #pragma unroll
       for (int kk = 0; kk < kSlab / 16; ++kk) {
-        fence_frag(ph[kk]);
-        fence_frag(pl[kk]);
+        hopper::fence_frag(ph[kk]);
+        hopper::fence_frag(pl[kk]);
       }
     }
 

@@ -14,7 +14,12 @@ takes the kernel's summation order for the forget gates' cumsum and
 -1e30 for the masked entries and the initial stabiliser, where the jnp
 version takes ``jnp.cumsum`` and -inf; both stay within those bounds of
 each other and of the Pallas body.  The kernel runs only on the card
-(``-m cuda`` and ``chip_smoke.py``).
+(``-m cuda`` and ``chip_smoke.py``).  Its bf16 ``"wgmma"`` route feeds the
+tensor cores three operands that the plain version keeps in fp32 -- k o
+w_end (the chunk states), the carried C and P = (q k^T) o exp(a - m_new)
+-- each as a bf16 hi + lo pair; ``_wgmma_emulation`` repeats those
+roundings in fp32 torch and is held to the kernel's gates against both
+packages here.
 """
 
 import jax.numpy as jnp
@@ -209,6 +214,158 @@ def test_unknown_impl_raises():
                           impl="pallas")
 
 
+def _route_args(dtype=torch.bfloat16, d=512, s=2048, offset=0, which="q"):
+    """q, k, v (1, s, 4, d) for :func:`mk.route`; ``which`` of them a view
+    ``offset`` elements into a larger buffer."""
+    def make(name):
+        shape = (1, s, 4, d)
+        if name != which or not offset:
+            return torch.empty(shape, dtype=dtype)
+        count = int(np.prod(shape))
+        return torch.empty(count + offset, dtype=dtype)[offset:].view(shape)
+    return make("q"), make("k"), make("v")
+
+
+@pytest.mark.parametrize("case,want", [
+    (dict(), "wgmma"),                              # xlstm-350m's prefill
+    (dict(d=64, chunk=64), "wgmma"),
+    (dict(d=128, chunk=128), "wgmma"),
+    (dict(d=192, chunk=192), "wgmma"),
+    (dict(d=448, s=128), "wgmma"),                  # chunk = min(256, s)
+    (dict(dtype=torch.float32), "fma"),
+    (dict(d=32, s=48, chunk=16), "fma"),            # smoke xlstm's prefill
+    (dict(d=16), "fma"),
+    (dict(d=80), "fma"),
+    (dict(d=576), "fma"),                           # above 512
+    (dict(chunk=32), "fma"),
+    (dict(chunk=96), "fma"),
+    (dict(chunk=512), "fma"),                       # above MAX_CHUNK
+    (dict(s=12, chunk=16), "fma"),                  # chunk = min(16, s)
+    (dict(offset=1), "fma"),                        # q misaligned
+    (dict(offset=8), "wgmma"),                      # 16 bytes in: aligned
+    (dict(offset=4, which="k"), "fma"),
+    (dict(offset=1, which="v"), "fma"),
+])
+def test_route(case, want):
+    """The route follows dtype, shape and alignment alone (CPU tensors:
+    ``route`` reads only dtype, shape and ``data_ptr``)."""
+    case = dict(case)
+    chunk = case.pop("chunk", 256)
+    q, k, v = _route_args(**case)
+    assert mk.route(q, chunk, k, v) == want
+    if case.get("which", "q") == "q":
+        assert mk.route(q, chunk) == want
+
+
+def _bf16_pair(v, split=True):
+    """v as the tensor cores take it: bf16 hi + lo (or hi alone)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float() if split else hi
+
+
+WGMMA_SPLITS = ("kw", "state", "P")
+
+
+def _wgmma_emulation(q, k, v, i_gate, f_gate, chunk, split=WGMMA_SPLITS):
+    """The ``"wgmma"`` route's arithmetic in fp32 torch with its bf16
+    operands: the gates as the plain version forms them (the stabiliser
+    chain first, then every chunk at once); the chunk states (k o w_end)^T
+    . v from the operand k o w_end and n_c from its fp32 values; the state
+    passed in fp32 (C <- C decay + K_c); q . C from the carried C; P . v
+    from P = (q k^T) o exp(a - m_new), its row sums in fp32 -- each operand
+    a bf16 hi + lo pair (or, left out of ``split``, rounded once); y
+    rounded once."""
+    b, s, h, d = q.shape
+    nc = s // chunk
+    f32 = torch.float32
+
+    def heads(t):           # (b, s, h, ...) -> (b, h, nc, chunk, ...)
+        t = t.to(f32).reshape((b, nc, chunk, h) + tuple(t.shape[3:]))
+        return t.movedim(3, 1)
+
+    qf, kf, vf, ig = heads(q), heads(k), heads(v), heads(i_gate)
+    F = ref._block_cumsum(heads(ref._log_sigmoid(f_gate.to(f32))))
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    a = torch.where(mask, (F[..., :, None] - F[..., None, :])
+                    + ig[..., None, :], ref.NEG_INF)
+    m_local = a.amax(dim=-1)                            # (b, h, c, l)
+    m = torch.full((b, h), ref.NEG_INF)
+    m_enter = []
+    for c in range(nc):
+        m_enter.append(m)
+        m = torch.maximum(m_local[:, :, c, -1], F[:, :, c, -1] + m)
+    m_enter = torch.stack(m_enter, dim=2)               # (b, h, c)
+    m_in = F + m_enter[..., None]
+    m_new = torch.maximum(m_local, m_in)
+    scin = torch.exp(m_in - m_new)
+    total, m_end = F[..., -1], m_new[..., -1]
+    w_end = torch.exp(((ig + total[..., None]) - F) - m_end[..., None])
+    decay = torch.exp((total + m_enter) - m_end)
+    kw = kf * w_end[..., None]
+    K = torch.matmul(_bf16_pair(kw, "kw" in split).transpose(-1, -2), vf)
+    n_c = kw.sum(dim=-2)
+    C = torch.zeros((b, h, d, d))
+    n = torch.zeros((b, h, d))
+    C_in, n_in = [], []
+    for c in range(nc):
+        C_in.append(C)
+        n_in.append(n)
+        C = C * decay[:, :, c, None, None] + K[:, :, c]
+        n = n * decay[:, :, c, None] + n_c[:, :, c]
+    C_in = _bf16_pair(torch.stack(C_in, 2), "state" in split)
+    n_in = torch.stack(n_in, 2)
+    P = torch.matmul(qf, kf.transpose(-1, -2)) * torch.exp(
+        a - m_new[..., None])
+    num = torch.matmul(_bf16_pair(P, "P" in split), vf) \
+        + torch.matmul(qf, C_in) * scin[..., None]
+    den = P.sum(dim=-1) + (qf * n_in[..., None, :]).sum(dim=-1) * scin
+    y = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return y.movedim(1, 3).reshape(b, s, h, d).to(q.dtype), (C, n, m)
+
+
+def _y_within_gate(got, want):
+    """y within the bf16 gate, elementwise (atol = rtol = 2e-2)."""
+    return np.allclose(_f32(got), _f32(want), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,s,h,d,chunk", [
+    (2, 128, 2, 64, 64),            # small: the Pallas body too
+    (1, 1024, 4, 128, 64),
+    (1, 512, 2, 512, 256),          # xlstm-350m's head dim at its chunk
+])
+def test_wgmma_emulation_within_gates(b, s, h, d, chunk):
+    """The wgmma route's roundings keep y within the bf16 gate (2e-2
+    elementwise), C and n within 2e-2 absolute and 2e-2 relative, and m
+    within 1e-3 of the port's plain scan, of the jnp oracle and, at the
+    small shape, of the Pallas kernel in interpret mode."""
+    arrs = _inputs(b, s, h, d, seed=s + d)
+    got = _wgmma_emulation(*_torch(arrs, torch.bfloat16), chunk)
+    jargs = _jax(arrs, jnp.bfloat16)
+    wants = [ref.mlstm_chunked(*_torch(arrs, torch.bfloat16), chunk=chunk),
+             jax_ref.mlstm_chunked(*jargs, chunk=chunk)]
+    if s * d <= 128 * 64:
+        wants.append(jax_ops.mlstm_chunked(*jargs, chunk=chunk,
+                                           impl="pallas_interpret"))
+    for want in wants:
+        _assert_result(got, want, "bfloat16")
+
+
+def test_wgmma_splits_are_needed():
+    """Why each tensor-core operand is a hi + lo pair: at xlstm-350m's
+    prefill shape (1, 2048, 4, 512), chunk 256, seed 70, rounding any one
+    of k o w_end, the carried C or P once puts y outside its elementwise
+    2e-2 gate, which all three pairs keep (measured: 0.37 of the gate with
+    the pairs; 2.9, 4.9 and 6.8 with k o w_end, C or P rounded once)."""
+    args = _torch(_inputs(1, 2048, 4, 512, seed=70), torch.bfloat16)
+    yp, _ = ref.mlstm_chunked(*args, chunk=256)
+    y, _ = _wgmma_emulation(*args, 256)
+    assert _y_within_gate(y, yp)
+    for once in WGMMA_SPLITS:
+        y1, _ = _wgmma_emulation(
+            *args, 256, split=tuple(x for x in WGMMA_SPLITS if x != once))
+        assert not _y_within_gate(y1, yp), once
+
+
 CARD_SHAPES = SHAPES + [
     (1, 48, 4, 32, 16),         # smoke xlstm's prefill (prompt 48)
     (1, 12, 2, 64, 12),         # a chunk of 12
@@ -224,12 +381,17 @@ def test_kernel_matches_plain_on_card(b, s, h, d, chunk, dtype):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     tdt = DTYPES[dtype][0]
     args = [t.cuda() for t in _torch(_inputs(b, s, h, d, seed=9), tdt)]
+    which = mk.route(args[0], chunk, args[1], args[2])
+    assert which == ("wgmma" if dtype == "bfloat16" and d % 64 == 0
+                     and chunk % 64 == 0 else "fma")
     before = mk.mlstm_chunk.launches
+    routed = mk.mlstm_chunk.route_launches[which]
     got = mk.mlstm_chunk(*args, chunk=chunk)
     again = mk.mlstm_chunk(*args, chunk=chunk)
     want = ref.mlstm_chunked(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert mk.mlstm_chunk.launches == before + 2
+    assert mk.mlstm_chunk.route_launches[which] == routed + 2
     assert torch.equal(got[0], again[0])
     assert all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
     cpu = lambda r: (r[0].cpu(), tuple(t.cpu() for t in r[1]))  # noqa: E731
@@ -252,3 +414,60 @@ def test_kernel_argument_checks_on_card(case, err, match):
         ig = ig.double()
     with pytest.raises(err, match=match):
         mk.mlstm_chunk(q, k, v, ig, fg, chunk=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [1, 4])
+@pytest.mark.parametrize("n_chunks", [1, 8])
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 512])
+def test_wgmma_route_matches_plain_on_card(d, chunk, n_chunks, h):
+    """The bf16 wgmma route at its edges -- d = 64 (column tiles of 64),
+    128 and 512, chunks of one to four 64-row slabs, s of one chunk and of
+    eight, b = 2 -- against the plain version within the bf16 gates, two
+    calls bitwise equal, each launch counted on that route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    b, s = 2, chunk * n_chunks
+    args = [t.cuda() for t in _torch(_inputs(b, s, h, d, seed=d + chunk + h),
+                                      torch.bfloat16)]
+    assert mk.route(args[0], chunk, args[1], args[2]) == "wgmma"
+    routed = dict(mk.mlstm_chunk.route_launches)
+    got = mk.mlstm_chunk(*args, chunk=chunk)
+    again = mk.mlstm_chunk(*args, chunk=chunk)
+    want = ref.mlstm_chunked(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mk.mlstm_chunk.route_launches == {
+        k: n + 2 * (k == "wgmma") for k, n in routed.items()}
+    assert torch.equal(got[0], again[0])
+    assert all(torch.equal(x, y) for x, y in zip(got[1], again[1]))
+    cpu = lambda r: (r[0].cpu(), tuple(t.cpu() for t in r[1]))  # noqa: E731
+    _assert_result(cpu(got), cpu(want), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,want", [(8, "wgmma"), (1, "fma")])
+def test_bf16_views_on_card(offset, want):
+    """bf16 q as a view into a larger buffer: 16 bytes in it stays on the
+    wgmma route and matches the plain version; 2 bytes in, ``route``
+    names ``fma``, whose kernel needs 16-byte aligned q, k and v too, so
+    the wrapper refuses it before any launch -- nothing falls back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v, ig, fg = (t.cuda() for t in _torch(
+        _inputs(1, 512, 2, 128, seed=17), torch.bfloat16))
+    buf = torch.empty(q.numel() + offset, dtype=q.dtype, device=q.device)
+    qv = buf[offset:].view(q.shape).copy_(q)
+    assert mk.route(qv, 128, k, v) == want
+    before = dict(mk.mlstm_chunk.route_launches)
+    if want == "fma":
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            mk.mlstm_chunk(qv, k, v, ig, fg, chunk=128)
+        assert mk.mlstm_chunk.route_launches == before
+        return
+    got = mk.mlstm_chunk(qv, k, v, ig, fg, chunk=128)
+    want_r = ref.mlstm_chunked(q, k, v, ig, fg, chunk=128)
+    torch.cuda.synchronize()
+    assert mk.mlstm_chunk.route_launches["wgmma"] == before["wgmma"] + 1
+    cpu = lambda r: (r[0].cpu(), tuple(t.cpu() for t in r[1]))  # noqa: E731
+    _assert_result(cpu(got), cpu(want_r), "bfloat16")
