@@ -10,10 +10,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. Build every kernel of the main path from ``src/repro_torch/kernels/csrc``
    (``nvcc`` for sm_90a, one process per source, all started together).
 2. Hold each kernel against its plain-PyTorch version on the card:
-   ``gs_stencil`` at (1024, 1024), (17, 5) and (1000, 1023) in float32 and
-   bfloat16 with four distinct halos — block and edges bitwise, residual
-   within rtol 1e-5 (both sides reduce over <= 1M fp32 terms, in different
-   orders), two calls bitwise-equal residuals.
+   ``gs_stencil`` at (1024, 1024), (17, 5), (1000, 1023), (1, 8), (8, 1),
+   (1, 1), (70, 264), (64, 1020) and (1024, 1024) at an element offset of
+   1, in float32 and bfloat16, with four distinct halos — each case on the
+   route ``collective_stages.route`` names (logged; both routes must run)
+   and launched once a call; block and edges bitwise, the residual
+   bitwise equal to ``residual_in_kernel_order`` (the kernel's summation
+   order) and within rtol 1e-5 of plain (both reduce over <= 1M fp32
+   terms, in different orders), two calls bitwise-equal residuals.  Four
+   streams, each held back by a sleep, then launching 50 calls that run
+   at once, give results bitwise equal to the same calls made alone; the
+   profiler sees 10 ``gs_stencil`` kernels over 10 calls and no other.
+2b. Views through ``kernels.ops``: transposed (non-contiguous) and
+   element-offset (misaligned) views of every input of ``flash_attention``,
+   ``mamba2_ssd``, ``mlstm_chunked``, ``moe_gmm`` (bf16) and
+   ``gs_stencil`` (fp32) reach the kernels (each launch counted) and
+   match the plain versions on the contiguous inputs: bf16 within 2e-2
+   and the SSD / mLSTM states within 1e-3 of their largest value; the
+   stencil's block and edges bitwise, its residual within rtol 1e-5.
 3. An ``ArrayHandle`` / ``tac.iwait`` probe: a task launches the kernel
    behind a busy stream and binds the handle; a dependent task reads the
    output; the release was deferred (the handle was still in flight).
@@ -25,8 +39,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rtol 1e-5); a small run on the card equals the CPU plain path.
 5. Timing of each kernel at the main path's shape (CUDA events, a ring of
    blocks larger than the L2 cache so every launch reads cold data): device
-   time per call from CUDA-graph replay (``ms``, ``plain_ms``) and the
-   eager wrapper's time as the main path pays it (``wrapper_ms``).
+   time per call from CUDA-graph replay (``ms``, ``plain_ms``), the eager
+   wrapper's time as the main path pays it (``wrapper_ms``), ``bound_ms /
+   ms``, and ``copy_ms``: ``dst.copy_(block)`` of the same cold blocks by
+   the same replay, the practical floor for moving these bytes at this
+   size (a yardstick, not a library version of the function).
 6. Level-A collectives on CUDA tensors: allreduce, reduce_scatter and a
    persistent plan over 4 ranks return CUDA tensors, bitwise equal to the
    same run on CPU tensors and within rtol 1e-6 of a float64 sum.
@@ -243,28 +260,50 @@ def time_ms(fn, n: int, rounds: int = 5) -> float:
     return float(np.median(per_call))
 
 
-def stencil_inputs(H, W, dtype, seed, device):
+def stencil_inputs(H, W, dtype, seed, device, offset: int = 0):
+    """Block and four distinct halos; the block a contiguous view
+    ``offset`` elements into a flat buffer."""
     import torch
     rng = np.random.default_rng(seed)
-    arrs = [rng.standard_normal(s) for s in ((H, W), W, H, W, H)]
-    return [torch.from_numpy(a).to(device, dtype) for a in arrs]
+    arrs = [torch.from_numpy(rng.standard_normal(s)).to(device, dtype)
+            for s in ((H, W), W, H, W, H)]
+    if offset:
+        buf = torch.zeros(H * W + offset, dtype=dtype, device=device)
+        arrs[0] = buf[offset:].view(H, W).copy_(arrs[0])
+    return arrs
+
+
+# Phase 2's shapes (H, W, element offset of the block): the main path's,
+# ragged W, H = 1 and W = 1 (both halos of a pair), several CTAs each way,
+# a W that is a multiple of 4 but not of 8, and a misaligned block.
+GS_CASES = ((BLOCK, BLOCK, 0), (17, 5, 0), (1000, 1023, 0), (1, 8, 0),
+            (8, 1, 0), (1, 1, 0), (70, 264, 0), (64, 1020, 0),
+            (BLOCK, BLOCK, 1))
 
 
 def check_gs_stencil(stages, ref, device) -> float:
-    """Phase 2; returns the largest |kernel - plain| at the main shape."""
+    """Phase 2; returns the largest |kernel - plain| residual at the main
+    shape."""
     import torch
     worst = 0.0
+    ran = set()
     for dtype in (torch.float32, torch.bfloat16):
-        for H, W in ((BLOCK, BLOCK), (17, 5), (1000, 1023)):
-            block, top, left, bottom, right = stencil_inputs(
-                H, W, dtype, H * W, device)
-            new, res, edges = stages.gs_stencil(block, top, left, bottom,
-                                                right)
-            _, res2, _ = stages.gs_stencil(block, top, left, bottom, right)
-            new_p, res_p, edges_p = ref.gs_stencil(block, top, left, bottom,
-                                                   right)
+        for H, W, offset in GS_CASES:
+            args = stencil_inputs(H, W, dtype, H * W, device, offset)
+            which = stages.route(args[0])
+            tag = f"gs_stencil {str(dtype)[6:]} {H}x{W}+{offset} {which}"
+            if which != ("vec" if offset == 0 and
+                         W % stages.GS_VEC[dtype] == 0 else "scalar"):
+                raise AssertionError(f"{tag}: unexpected route")
+            before = stages.gs_stencil.route_launches[which]
+            new, res, edges = stages.gs_stencil(*args)
+            _, res2, _ = stages.gs_stencil(*args)
+            new_p, res_p, edges_p = ref.gs_stencil(*args)
+            order = stages.residual_in_kernel_order(*args, which=which)
             torch.cuda.synchronize()
-            tag = f"gs_stencil {str(dtype)[6:]} {H}x{W}"
+            if stages.gs_stencil.route_launches[which] != before + 2:
+                raise AssertionError(f"{tag}: not one launch a call on "
+                                     f"its route")
             if not torch.equal(new, new_p):
                 raise AssertionError(f"{tag}: block differs from plain")
             for k, (e, ep) in enumerate(zip(edges, edges_p)):
@@ -277,14 +316,171 @@ def check_gs_stencil(stages, ref, device) -> float:
             if not torch.equal(res, res2):
                 raise AssertionError(f"{tag}: residual not reproducible "
                                      f"({res.item()} vs {res2.item()})")
+            if not torch.equal(res, order):
+                raise AssertionError(f"{tag}: residual {res.item()!r} is "
+                                     f"not the kernel-order sum "
+                                     f"{order.item()!r}")
             r, rp = res.item(), res_p.item()
             if abs(r - rp) > RES_RTOL * abs(rp):
                 raise AssertionError(f"{tag}: residual {r} vs plain {rp}")
-            if dtype == torch.float32 and (H, W) == (BLOCK, BLOCK):
+            if dtype == torch.float32 and (H, W, offset) == GS_CASES[0]:
                 worst = max(worst, abs(r - rp))
-            log(f"{tag}: block+edges bitwise, residual {r:.9g} vs plain "
-                f"{rp:.9g} (rtol {RES_RTOL}), reproducible")
+            ran.add(which)
+            log(f"{tag}: block+edges bitwise, residual {r:.9g} = kernel "
+                f"order, plain {rp:.9g} (rtol {RES_RTOL}), reproducible")
+    if ran != set(stages.GS_ROUTES):
+        raise AssertionError(f"gs_stencil: routes run {sorted(ran)}")
+    check_gs_streams(stages, device)
+    check_gs_one_launch(stages, device)
     return worst
+
+
+def check_gs_streams(stages, device, n_calls: int = 50) -> None:
+    """Four streams, each held back by a sleep so that its calls queue,
+    then launching ``n_calls`` calls from a thread of its own: the calls
+    of the four streams run at once, and each result must equal, bitwise,
+    the same call made alone (a ticket or partials buffer shared between
+    streams would mix their sums)."""
+    import threading
+    import torch
+    cases = [stencil_inputs(H, W, torch.float32, 50 + k, device)
+             for k, (H, W) in enumerate(((BLOCK, BLOCK), (1000, 1023),
+                                         (BLOCK, BLOCK), (256, 8)))]
+    alone = [[t.clone() for t in (r[0], r[1], *r[2])]
+             for r in (stages.gs_stencil(*a) for a in cases)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device) for _ in cases]
+    results = [[] for _ in cases]
+
+    def run(k):
+        with torch.cuda.stream(streams[k]):
+            torch.cuda._sleep(50_000_000)
+            for _ in range(n_calls):
+                results[k].append(stages.gs_stencil(*cases[k]))
+
+    threads = [threading.Thread(target=run, args=(k,))
+               for k in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for k, want in enumerate(alone):
+        if len(results[k]) != n_calls:
+            raise AssertionError(f"gs_stencil streams: stream {k} made "
+                                 f"{len(results[k])} calls")
+        for new, res, edges in results[k]:
+            if not all(torch.equal(g, w)
+                       for g, w in zip((new, res, *edges), want)):
+                raise AssertionError(f"gs_stencil streams: a call on "
+                                     f"stream {k} differs from alone")
+    log(f"gs_stencil: 4 streams x {n_calls} calls at once, each bitwise "
+        f"equal to the call alone")
+
+
+def check_gs_one_launch(stages, device, n_calls: int = 10) -> None:
+    """torch.profiler over ``n_calls`` eager calls sees exactly that many
+    device kernels, all ``gs_stencil`` (no second pass, no memset, no
+    halo cast)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    args = stencil_inputs(BLOCK, BLOCK, torch.float32, 10, device)
+    stages.gs_stencil(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            stages.gs_stencil(*args)
+        torch.cuda.synchronize()
+    seen = {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("Activity Buffer")}
+    if sum(seen.values()) != n_calls or not all("gs_stencil" in k
+                                                for k in seen):
+        raise AssertionError(f"gs_stencil: {n_calls} calls gave device "
+                             f"activity {seen}")
+    log(f"gs_stencil: {n_calls} calls, {n_calls} kernels ({seen})")
+
+
+def _strided(t):
+    """``t``'s values in a non-contiguous layout of the same shape."""
+    import torch
+    if t.dim() >= 2:
+        v = t.transpose(-1, -2).contiguous().transpose(-1, -2)
+    else:
+        v = torch.zeros(2 * t.numel(), dtype=t.dtype,
+                        device=t.device)[::2].copy_(t)
+    assert not v.is_contiguous()
+    return v
+
+
+def _offset(t, k: int = 1):
+    """``t``'s values in a contiguous view ``k`` elements into a flat
+    buffer: misaligned for every dtype's 16-byte vectors."""
+    import torch
+    buf = torch.zeros(t.numel() + k, dtype=t.dtype, device=t.device)
+    return buf[k:].view(t.shape).copy_(t)
+
+
+def _rel_err(got, want) -> float:
+    """max|got - want| / max|want|."""
+    return _max_abs_diff(got, want) / max(float(want.double().abs().max()),
+                                          1e-30)
+
+
+def check_ops_views(device) -> None:
+    """Phase 2b: transposed and offset views of every input through the
+    five ``kernels.ops`` entry points with a hand kernel reach the kernel
+    and match its plain version on the contiguous inputs."""
+    import torch
+    from repro_torch.kernels import collective_stages as stages
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import mlstm_chunk as mk
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.kernels import ops
+    bf = torch.bfloat16
+    # entry point: (its kernel, inputs, keywords, the outputs held to plain
+    # as (output, tolerance as max|diff| / max|plain|))
+    cases = {
+        "flash_attention": (fa.flash_attention,
+                            _qkv((1, 128, 128, 4, 2, 64), bf, device, 21),
+                            {}, lambda r: [(r, 2e-2)]),
+        "mamba2_ssd": (ssd.mamba2_ssd,
+                       _ssd_inputs((1, 128, 4, 64, 64), bf, device, 22),
+                       {"chunk": 64}, lambda r: [(r[0], 2e-2), (r[1], 1e-3)]),
+        "mlstm_chunked": (mk.mlstm_chunk,
+                          _mlstm_inputs((1, 128, 2, 64), bf, device, 23),
+                          {"chunk": 64},
+                          lambda r: [(r[0], 2e-2)] + [(t, 1e-3)
+                                                      for t in r[1]]),
+        "moe_gmm": (mg.moe_gmm, _gmm_inputs((4, 16, 64, 48), bf, device, 24),
+                    {}, lambda r: [(r, 2e-2)]),
+        "gs_stencil": (stages.gs_stencil,
+                       stencil_inputs(96, 128, torch.float32, 25, device),
+                       {}, lambda r: [(r[1], RES_RTOL)]),
+    }
+    for name, (kernel, args, kw, held) in cases.items():
+        entry = getattr(ops, name)
+        want = entry(*args, impl="ref", **kw)
+        for kind, make in (("transposed", _strided), ("offset", _offset)):
+            before = kernel.launches
+            got = entry(*(make(t) for t in args), **kw)
+            torch.cuda.synchronize()
+            tag = f"ops views {name} {kind}"
+            if kernel.launches <= before:
+                raise AssertionError(f"{tag}: the kernel did not launch")
+            if name == "gs_stencil" and not (
+                    torch.equal(got[0], want[0]) and all(
+                        torch.equal(e, w) for e, w in zip(got[2], want[2]))):
+                raise AssertionError(f"{tag}: block or edges differ")
+            errs = []
+            for (g, tol), (w, _) in zip(held(got), held(want)):
+                errs.append(_rel_err(g, w))
+                if not errs[-1] <= tol:
+                    raise AssertionError(f"{tag}: {errs[-1]} of max|plain| "
+                                         f"(limit {tol})")
+            log(f"{tag}: launched, max|diff| / max|plain| "
+                f"{', '.join(f'{e:.3g}' for e in errs)}")
 
 
 def iwait_probe(stages, ref, device) -> None:
@@ -405,13 +601,18 @@ def graph_ms(fn, n_calls: int) -> float:
 def time_gs_stencil(stages, ref, device):
     """Phase 5: times per call at the main path's block shape, on cold data
     (a ring of 16 blocks, 64 MiB of inputs, larger than the 50 MB L2):
-    device time from CUDA-graph replay for the kernel and for the plain
-    version, and the eager wrapper's time as the main path calls it."""
+    device time from CUDA-graph replay for the kernel, for the plain
+    version and for ``dst.copy_(block)`` into 16 destinations (the floor
+    for moving the block's bytes at this size), and the eager wrapper's
+    time as the main path calls it."""
     import torch
     ring = [stencil_inputs(BLOCK, BLOCK, torch.float32, 100 + i, device)
             for i in range(16)]
+    dst = [torch.empty_like(r[0]) for r in ring]
     t = {"ms": graph_ms(lambda i: stages.gs_stencil(*ring[i % 16]), 16),
          "plain_ms": graph_ms(lambda i: ref.gs_stencil(*ring[i % 16]), 16),
+         "copy_ms": graph_ms(lambda i: dst[i % 16].copy_(ring[i % 16][0]),
+                             16),
          "wrapper_ms": time_ms(lambda i: stages.gs_stencil(*ring[i % 16]),
                                200),
          "plain_eager_ms": time_ms(lambda i: ref.gs_stencil(*ring[i % 16]),
@@ -423,6 +624,7 @@ def time_gs_stencil(stages, ref, device):
     t_ops = flops / FP32_FLOPS * 1e3
     t["bound_ms"] = max(t_bytes, t_ops)
     t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    t["bound_share"] = t["bound_ms"] / t["ms"]
     return t
 
 
@@ -1982,13 +2184,15 @@ def main() -> int:
         log(f"nvcc {name}:\n{out.strip()}")
 
     max_err = check_gs_stencil(stages, ref, device)
+    check_ops_views(device)
     iwait_probe(stages, ref, device)
     per_it, launches = main_path(gs, stages, device)
     t = time_gs_stencil(stages, ref, device)
     log(f"gs_stencil 1024x1024 fp32: device {t['ms']:.6f} ms/call (plain "
-        f"{t['plain_ms']:.6f}), eager wrapper {t['wrapper_ms']:.6f} ms/call "
-        f"(plain {t['plain_eager_ms']:.6f}), bound {t['bound_ms']:.6f} ms "
-        f"({t['bound_by']})")
+        f"{t['plain_ms']:.6f}, copy_ of the block {t['copy_ms']:.6f}), eager "
+        f"wrapper {t['wrapper_ms']:.6f} ms/call (plain "
+        f"{t['plain_eager_ms']:.6f}), bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}), bound / ms {t['bound_share']:.4f}")
     for version, s in per_it.items():
         log(f"wall {version}: {s:.6f} s/iteration")
     torch.cuda.empty_cache()
@@ -2062,6 +2266,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/collective_stages.py:200",
         "launches": launches, "max_abs_err": max_err, **t,
         "library_ms": None,
+        "design": "one launch, last-CTA residual, 16-byte rows",
     }]
     for name, line in (("fused_combine", 82), ("quantize_wire", 135),
                        ("dequantize_wire", 162)):

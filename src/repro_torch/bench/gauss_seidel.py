@@ -419,5 +419,11 @@ def run_real(version: str, *, n_ranks: int = 4, workers: int = 2,
         torch.cuda.synchronize(device)
     # wall seconds of the iterations, set-up (data, streams, runtime) excluded
     stats["seconds"] = time.perf_counter() - t_start
-    return torch.cat([torch.cat(row, dim=1) for row in grids[iters]],
-                     dim=0), stats
+    grid = torch.cat([torch.cat(row, dim=1) for row in grids[iters]], dim=0)
+    # The task closures above and this frame form reference cycles: drop
+    # the blocks and edges they reach now, not at the collector's next
+    # pass (at full size, every generation of the grid stays on the card
+    # until then).
+    for held in (grids, halos, edge_cache):
+        held.clear()
+    return grid, stats

@@ -3,12 +3,16 @@
 Runs the timing phases of ``chip_smoke.py`` (5, 9, 12, 15, 18 and 21:
 CUDA-graph replay on cold data) from the checkout whose root is given
 and prints one line, ``TIMES <root> <json>``, of device ms per call by
-kernel and shape.  Two checkouts compare on one card when one command
-runs them in turns (parent, change, change, parent), each in a process of
-its own that imports the package from ``<root>/src`` -- so run the file,
-not the module (``-m`` would import this checkout's package first)::
+kernel and shape (and, for ``gs_stencil``, the eager wrapper's ms per
+call and, where the checkout's phase 5 times it, ``copy_`` of the same
+blocks).  With ``--main-path`` it first runs phase 4, the Gauss–Seidel
+main path, and adds its wall seconds per iteration by version.  Two
+checkouts compare on one card when one command runs them in turns
+(parent, change, change, parent), each in a process of its own that
+imports the package from ``<root>/src`` -- so run the file, not the
+module (``-m`` would import this checkout's package first)::
 
-    python3 src/repro_torch/bench/kernel_times.py <root>
+    python3 src/repro_torch/bench/kernel_times.py <root> [--main-path]
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import json
 import sys
 
 
-def main(root: str) -> dict:
+def main(root: str, main_path: bool = False) -> dict:
     sys.path.insert(0, root + "/src")
     sys.path.insert(0, root)
     import torch
@@ -32,7 +36,16 @@ def main(root: str) -> dict:
         raise SystemExit("kernel_times: no CUDA device")
     build.build()
     device = torch.device("cuda")
-    out = {"gs_stencil": cs.time_gs_stencil(stages, ref, device)["ms"]}
+    out = {}
+    if main_path:
+        from repro_torch.bench import gauss_seidel as gs
+        per_it, _ = cs.main_path(gs, stages, device)
+        out.update({f"gs s/iteration {v}": s for v, s in per_it.items()})
+        torch.cuda.empty_cache()
+    t = cs.time_gs_stencil(stages, ref, device)
+    out["gs_stencil"] = t["ms"]
+    out.update({f"gs_stencil {k}": t[k] for k in ("wrapper_ms", "copy_ms")
+                if k in t})
     t = cs.time_stage_kernels(stages, ref, device)
     for name in ("fused_combine", "quantize_wire", "dequantize_wire"):
         out[name] = t[name]["ms"]
@@ -48,4 +61,5 @@ def main(root: str) -> dict:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else ".")
+    args = [a for a in sys.argv[1:] if a != "--main-path"]
+    main(args[0] if args else ".", "--main-path" in sys.argv[1:])

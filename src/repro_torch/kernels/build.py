@@ -33,9 +33,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "gs_stencil": {
-        "gs_stencil_num_partials": ((_I, _I), _I),
-        "gs_stencil_f32": ((_P,) * 12 + (_I, _I, _P), _I),
-        "gs_stencil_bf16": ((_P,) * 12 + (_I, _I, _P), _I),
+        # (H, W, dtype, route)
+        "gs_stencil_num_partials": ((_I,) * 4, _I),
+        "gs_stencil_num_slots": ((), _I),
+        "gs_stencil_pool_words": ((), _I),
+        # (block, top, left, bottom, right, out, edges, res, H, W, dtype,
+        #  route, ticket slot, offset of the partial words, stream)
+        "gs_stencil_fwd": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
     },
     "collective_stages": {
         # (acc, got, scale or NULL, out, n, acc dtype, got dtype,

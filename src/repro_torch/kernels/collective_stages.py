@@ -23,7 +23,7 @@ launches (plain-version calls count nothing).
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -165,6 +165,21 @@ quantize_wire.launches = 0
 dequantize_wire.launches = 0
 
 
+# gs_stencil's routes, by code of the C interface of csrc/gs_stencil.cu,
+# and its launch geometry (kRows, kWarps there): a thread owns GS_VEC[dt]
+# adjacent columns ("vec") or one ("scalar") of a strip of GS_ROWS rows; a
+# CTA stacks GS_WARPS data warps (and one warp that sums them).
+GS_ROUTES = ("scalar", "vec")
+_GS_ROUTE_CODES = {name: code for code, name in enumerate(GS_ROUTES)}
+GS_VEC = {torch.float32: 4, torch.bfloat16: 8}      # 16 bytes
+GS_ROWS, GS_WARPS = 4, 8
+_gs_lock = threading.Lock()
+_gs_partials: Dict[Tuple[int, int, int, int], int] = {}  # (H, W, dt, route)
+_gs_slots: Dict[Tuple[int, int], int] = {}          # (device, stream)
+_gs_words_used: Dict[int, int] = {}                 # device -> words
+_gs_scratch: Dict[Tuple[int, int, int], Tuple[int, int]] = {}
+
+
 def _check_cuda_args(block: torch.Tensor, halos) -> None:
     if block.dim() != 2 or block.numel() == 0:
         raise ValueError(f"gs_stencil: block must be a non-empty 2-D "
@@ -187,6 +202,60 @@ def _check_cuda_args(block: torch.Tensor, halos) -> None:
             raise ValueError(f"gs_stencil: {name} halo must be contiguous")
 
 
+def route(block: torch.Tensor) -> str:
+    """The route of ``csrc/gs_stencil.cu`` that ``gs_stencil(block, ...)``
+    takes on the card, from dtype, shape and alignment alone:
+
+    * ``"vec"`` — W a multiple of the dtype's 16-byte width (4 fp32, 8
+      bf16 columns) and the block at a 16-byte aligned address: 16-byte
+      loads and stores of the block;
+    * ``"scalar"`` — everything else (ragged W, views at unaligned
+      offsets): the same kernel, one column a thread.
+
+    The halos are read with scalar loads on both routes, and the outputs
+    are allocated by the wrapper, so neither enters the choice."""
+    vec = GS_VEC.get(block.dtype, 0)
+    if vec and block.shape[-1] % vec == 0 and block.data_ptr() % 16 == 0:
+        return "vec"
+    return "scalar"
+
+
+def _gs_plan(H: int, W: int, dt: torch.dtype, which: str) -> int:
+    """The number of partial words a call needs, one a CTA (from the C
+    interface, once per shape)."""
+    key = (H, W, _CODES[dt], _GS_ROUTE_CODES[which])
+    n = _gs_partials.get(key)
+    if n is None:
+        n = build.load("gs_stencil").gs_stencil_num_partials(*key)
+        _gs_partials[key] = n
+    return n
+
+
+def _gs_scratch_for(device: int, stream: int, n: int) -> Tuple[int, int]:
+    """The ticket slot of launches on ``stream`` and the offset of their
+    ``n`` partial words in the kernel's pool, handed out once under a lock
+    (the header of ``csrc/gs_stencil.cu`` says why one per stream: calls on
+    different streams may run at once)."""
+    key = (device, stream, n)
+    got = _gs_scratch.get(key)
+    if got is not None:
+        return got
+    with _gs_lock:
+        got = _gs_scratch.get(key)
+        if got is None:
+            lib = build.load("gs_stencil")
+            slot = _gs_slots.setdefault(key[:2], len(_gs_slots))
+            offset = _gs_words_used.get(device, 0)
+            if (slot >= lib.gs_stencil_num_slots()
+                    or offset + n > lib.gs_stencil_pool_words()):
+                raise RuntimeError(
+                    f"gs_stencil: out of ticket slots or partial words "
+                    f"({len(_gs_slots)} streams, {offset + n} words)")
+            _gs_words_used[device] = offset + n
+            got = _gs_scratch[key] = (slot, offset)
+    return got
+
+
 def gs_stencil(block: torch.Tensor, top: torch.Tensor, left: torch.Tensor,
                bottom: torch.Tensor, right: torch.Tensor):
     """Fused Gauss–Seidel block stage.
@@ -198,29 +267,84 @@ def gs_stencil(block: torch.Tensor, top: torch.Tensor, left: torch.Tensor,
     left, right))`` with edges of length W, W, H, H — note the argument
     order (top, left, bottom, right) differs from the edge order.  The
     halos are rounded to the block's dtype (float32 or bfloat16) first.
-    On a CUDA device the launch goes on the current stream.
+    On a CUDA device: one launch on the current stream, on the route
+    :func:`route` names; the edges are contiguous views of one buffer.
     """
     if not block.is_cuda:
         return ref.gs_stencil(block, top, left, bottom, right)
     dt = block.dtype
-    halos = [h.to(dt) for h in (top, left, bottom, right)]
+    halos = [h if h.dtype == dt else h.to(dt)
+             for h in (top, left, bottom, right)]
     _check_cuda_args(block, halos)
     H, W = block.shape
-    lib = build.load("gs_stencil")
+    which = route(block)
+    n = _gs_plan(H, W, dt, which)
+    # the current stream's handle (what torch.cuda.current_stream(device)
+    # .cuda_stream gives, without making a Stream object)
+    device = block.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    slot, offset = _gs_scratch_for(device, stream, n)
     new = torch.empty_like(block)
-    edges = [torch.empty(n, dtype=dt, device=block.device)
-             for n in (W, W, H, H)]
-    partials = torch.empty(lib.gs_stencil_num_partials(H, W),
-                           dtype=torch.float32, device=block.device)
+    edges = torch.empty(2 * (W + H), dtype=dt, device=block.device)
     res = torch.empty((), dtype=torch.float32, device=block.device)
-    fn = lib.gs_stencil_f32 if dt == torch.float32 else lib.gs_stencil_bf16
-    stream = torch.cuda.current_stream(block.device).cuda_stream
-    err = fn(block.data_ptr(), *(h.data_ptr() for h in halos),
-             new.data_ptr(), *(e.data_ptr() for e in edges),
-             partials.data_ptr(), res.data_ptr(), H, W, stream)
+    err = build.load("gs_stencil").gs_stencil_fwd(
+        block.data_ptr(), halos[0].data_ptr(), halos[1].data_ptr(),
+        halos[2].data_ptr(), halos[3].data_ptr(), new.data_ptr(),
+        edges.data_ptr(), res.data_ptr(), H, W, _CODES[dt],
+        _GS_ROUTE_CODES[which], slot, offset, stream)
     build.check(err, "gs_stencil")
-    _count(gs_stencil)
-    return new, res, tuple(edges)
+    with _count_lock:
+        gs_stencil.launches += 1
+        gs_stencil.route_launches[which] += 1
+    return new, res, edges.split_with_sizes((W, W, H, H))
 
 
 gs_stencil.launches = 0
+gs_stencil.route_launches = {name: 0 for name in GS_ROUTES}
+
+
+def _shuffle_tree(a: torch.Tensor) -> torch.Tensor:
+    """Lane 0 of a warp's shuffle-down tree (offsets 16, 8, 4, 2, 1) over
+    the last axis of ``a`` (32 lanes, fp32)."""
+    for off in (16, 8, 4, 2, 1):
+        a = a[..., :off] + a[..., off:2 * off]
+    return a[..., 0]
+
+
+def residual_in_kernel_order(block: torch.Tensor, top: torch.Tensor,
+                             left: torch.Tensor, bottom: torch.Tensor,
+                             right: torch.Tensor,
+                             which: Optional[str] = None) -> torch.Tensor:
+    """The fp32 residual ``sum|new - old|`` of :func:`gs_stencil`, summed
+    in exactly the order of ``csrc/gs_stencil.cu`` on route ``which``
+    (default :func:`route`), with tensor operations on the block's device:
+    each thread's rows, then its columns, in order; the warp's shuffle
+    tree; the same tree over the CTA's warp sums (lanes beyond GS_WARPS at
+    0) into one partial per CTA; in the elected CTA, lane l summing
+    partials l, l + 32, ... in order, then the tree.  fp32 adds round the
+    same on any device, so on the card the kernel's residual equals this
+    bitwise.  Tests and ``chip_smoke.py`` use it; the main path does
+    not."""
+    which = route(block) if which is None else which
+    vec = GS_VEC[block.dtype] if which == "vec" else 1
+    new, old = ref.gs_update(block, top, left, bottom, right)
+    H, W = old.shape
+    gx, gy = -(-W // (32 * vec)), -(-H // (GS_WARPS * GS_ROWS))
+    terms = torch.nn.functional.pad(
+        (new - old).abs(), (0, gx * 32 * vec - W, 0, gy * GS_WARPS * GS_ROWS
+                            - H))
+    # (by, warp, row, bx, lane, column) -> (by, bx, warp, lane, row·column)
+    terms = terms.reshape(gy, GS_WARPS, GS_ROWS, gx, 32, vec).permute(
+        0, 3, 1, 4, 2, 5).reshape(gy, gx, GS_WARPS, 32, GS_ROWS * vec)
+    acc = torch.zeros(terms.shape[:-1], dtype=torch.float32,
+                      device=terms.device)
+    for k in range(GS_ROWS * vec):
+        acc = acc + terms[..., k]
+    warps = torch.nn.functional.pad(_shuffle_tree(acc), (0, 32 - GS_WARPS))
+    partials = _shuffle_tree(warps).reshape(-1)     # index by * gx + bx
+    partials = torch.nn.functional.pad(
+        partials, (0, -partials.numel() % 32)).reshape(-1, 32)
+    acc = torch.zeros(32, dtype=torch.float32, device=terms.device)
+    for row in partials:
+        acc = acc + row
+    return _shuffle_tree(acc)

@@ -5,6 +5,12 @@
   tensors, its plain version for CPU tensors;
 * ``impl="ref"``  — the plain-PyTorch version (:mod:`.ref`);
 * ``impl=None``   — the same as ``"cuda"``: the kernel on the card.
+
+Like the JAX ``ops``, every entry point takes views: a CUDA input that its
+kernel wrapper would refuse (a non-contiguous view, or a misaligned one
+where the wrapper reads 16-byte vectors) is copied to a fresh contiguous
+tensor first (:func:`_as_kernel_input`); every other input reaches the
+wrapper as it is, so no call's route changes and nothing falls back.
 """
 
 from __future__ import annotations
@@ -29,6 +35,18 @@ def _check_impl(name: str, impl: Optional[str]) -> None:
                          f"got {impl!r}")
 
 
+def _as_kernel_input(t: Optional[torch.Tensor], *,
+                     aligned: bool = False) -> Optional[torch.Tensor]:
+    """``t`` itself when a kernel wrapper takes it as it is: contiguous
+    and, with ``aligned``, starting on a 16-byte boundary.  Otherwise a
+    fresh contiguous copy, which the allocator aligns.  The entry points
+    below apply it to CUDA inputs only: the plain versions take views."""
+    if t is None or (t.is_contiguous()
+                     and not (aligned and t.data_ptr() % 16)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -41,6 +59,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check_impl("flash_attention", impl)
     if impl == "ref":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
+    if q.is_cuda:       # the bf16 kernel loads q, k, v by TMA
+        aligned = q.dtype == torch.bfloat16
+        q, k, v = (_as_kernel_input(t, aligned=aligned) for t in (q, k, v))
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -75,6 +96,9 @@ def mamba2_ssd(x, dt, A, B, C, *, chunk: int = 128, init_state=None,
         y, st = ref.ssd_chunked(x, dt, A, B, C, chunk=chunk,
                                 init_state=init_state)
     else:
+        if x.is_cuda:   # a misaligned x, B or C takes the fma route
+            x, dt, A, B, C, init_state = (
+                _as_kernel_input(t) for t in (x, dt, A, B, C, init_state))
         y, st = _ssd.mamba2_ssd(x, dt, A, B, C, chunk=chunk,
                                 init_state=init_state)
     return (y[:, :s] if pad else y), st
@@ -109,6 +133,9 @@ def mlstm_chunked(q, k, v, i_gate, f_gate, *, chunk: int, init=None,
         i_gate = F.pad(i_gate, (0, 0, 0, pad), value=-1e30)
         f_gate = F.pad(f_gate, (0, 0, 0, pad), value=30.0)
     if impl != "ref" and init is None:
+        if q.is_cuda:   # both routes read q, k, v in 16-byte vectors
+            q, k, v = (_as_kernel_input(t, aligned=True) for t in (q, k, v))
+            i_gate, f_gate = map(_as_kernel_input, (i_gate, f_gate))
         y, st = _mlstm.mlstm_chunk(q, k, v, i_gate, f_gate, chunk=chunk)
     else:
         y, st = ref.mlstm_chunked(q, k, v, i_gate, f_gate, chunk=chunk,
@@ -132,6 +159,8 @@ def moe_gmm(x, w, *, impl: Optional[str] = None) -> torch.Tensor:
     _check_impl("moe_gmm", impl)
     if impl == "ref":
         return ref.moe_gmm(x, w)
+    if x.is_cuda:       # a misaligned bf16 x or w takes the mma_sync route
+        x, w = _as_kernel_input(x), _as_kernel_input(w)
     return _gmm.moe_gmm(x, w)
 
 
@@ -197,4 +226,9 @@ def gs_stencil(block, top, left, bottom, right, *,
     _check_impl("gs_stencil", impl)
     if impl == "ref":
         return ref.gs_stencil(block, top, left, bottom, right)
+    if block.is_cuda:   # a misaligned block takes the scalar route; a halo
+        block = _as_kernel_input(block)     # of another dtype is cast
+        top, left, bottom, right = (
+            _as_kernel_input(h) if h.dtype == block.dtype else h
+            for h in (top, left, bottom, right))
     return _stages.gs_stencil(block, top, left, bottom, right)

@@ -24,6 +24,21 @@ from typing import Optional, Tuple
 import torch
 
 
+def gs_update(block: torch.Tensor, top: torch.Tensor, left: torch.Tensor,
+              bottom: torch.Tensor, right: torch.Tensor):
+    """The 4-point update of :func:`gs_stencil` before rounding: returns
+    ``(new, old)``, both fp32, ``new = 0.25 * (((up + down) + left) +
+    right)`` with the halos rounded to the block's dtype first."""
+    dt = block.dtype
+    b = block.float()
+    H, W = b.shape
+    up = torch.cat([top.to(dt).reshape(1, W).float(), b[:-1, :]], dim=0)
+    down = torch.cat([b[1:, :], bottom.to(dt).reshape(1, W).float()], dim=0)
+    lft = torch.cat([left.to(dt).reshape(H, 1).float(), b[:, :-1]], dim=1)
+    rgt = torch.cat([b[:, 1:], right.to(dt).reshape(H, 1).float()], dim=1)
+    return 0.25 * (up + down + lft + rgt), b
+
+
 def gs_stencil(block: torch.Tensor, top: torch.Tensor, left: torch.Tensor,
                bottom: torch.Tensor, right: torch.Tensor):
     """Fused Gauss–Seidel block stage: 4-point update, fp32 L1 residual
@@ -35,16 +50,9 @@ def gs_stencil(block: torch.Tensor, top: torch.Tensor, left: torch.Tensor,
     ``new``; block and edges are rounded to the block's dtype.  The halos
     are rounded to the block's dtype first, as the Pallas wrapper does.
     """
-    dt = block.dtype
-    b = block.float()
-    H, W = b.shape
-    up = torch.cat([top.to(dt).reshape(1, W).float(), b[:-1, :]], dim=0)
-    down = torch.cat([b[1:, :], bottom.to(dt).reshape(1, W).float()], dim=0)
-    lft = torch.cat([left.to(dt).reshape(H, 1).float(), b[:, :-1]], dim=1)
-    rgt = torch.cat([b[:, 1:], right.to(dt).reshape(H, 1).float()], dim=1)
-    new = 0.25 * (up + down + lft + rgt)
+    new, b = gs_update(block, top, left, bottom, right)
     res = torch.sum(torch.abs(new - b))
-    new = new.to(dt)
+    new = new.to(block.dtype)
     return new, res, (new[0, :], new[-1, :], new[:, 0].contiguous(),
                       new[:, -1].contiguous())
 

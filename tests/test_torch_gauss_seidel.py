@@ -109,3 +109,29 @@ def test_geometry_helpers_match_reference():
 def test_run_real_rejects_unknown_options(kw, match):
     with pytest.raises(ValueError, match=match):
         gs.run_real(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("version", ["pure", "interop-nonblk"])
+@pytest.mark.parametrize("block_impl", [None, "cuda"])
+def test_run_real_frees_its_blocks_without_gc(version, block_impl):
+    """run_real's task closures form reference cycles with its frame; its
+    blocks and edges must be freed when it returns, not at the collector's
+    next pass (on the card, a full-size run's every generation would stay
+    allocated until then)."""
+    import gc
+
+    def blocks():
+        return sum(1 for o in gc.get_objects()
+                   if isinstance(o, torch.Tensor)
+                   and tuple(o.shape) == (SIZE["bs"], SIZE["bs"]))
+
+    gc.collect()
+    gc.disable()
+    try:
+        before = blocks()
+        grid, stats = gs.run_real(version, block_impl=block_impl,
+                                  device="cpu", **SIZE)
+        del grid, stats
+        assert blocks() == before
+    finally:
+        gc.enable()

@@ -9,6 +9,9 @@ wrapper takes the plain version; the kernel itself is checked on the card
 (``-m cuda``, and ``chip_smoke.py``).
 """
 
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -133,26 +136,218 @@ def test_cuda_argument_checks(case, match):
         stages._check_cuda_args(block, halos)
 
 
+# ---------------------------------------------------------------------------
+# gs_stencil's routes and the order of its residual
+# ---------------------------------------------------------------------------
+ORDER_SHAPES = [(1024, 1024), (1000, 1023), (17, 5), (1, 8), (8, 1)]
+
+
+def _gs_view(arr, dtype, offset, device="cpu"):
+    """``arr`` as a contiguous ``dtype`` view ``offset`` elements into a
+    flat buffer (the allocator aligns the buffer)."""
+    t = torch.from_numpy(arr).to(device, dtype)
+    buf = torch.zeros(t.numel() + offset, dtype=dtype, device=device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
+def _routes(block):
+    """Both routes where the block meets the vec route, else scalar."""
+    return ("vec", "scalar") if stages.route(block) == "vec" else ("scalar",)
+
+
+@pytest.mark.parametrize("dtype,W,offset,want", [
+    ("float32", 1024, 0, "vec"), ("float32", 1020, 0, "vec"),
+    ("float32", 1023, 0, "scalar"), ("float32", 1022, 0, "scalar"),
+    ("float32", 1024, 4, "vec"), ("float32", 1024, 1, "scalar"),
+    ("float32", 1024, 2, "scalar"), ("bfloat16", 1024, 0, "vec"),
+    ("bfloat16", 1020, 0, "scalar"), ("bfloat16", 1016, 0, "vec"),
+    ("bfloat16", 1024, 8, "vec"), ("bfloat16", 1024, 4, "scalar"),
+    ("bfloat16", 1024, 1, "scalar"), ("float32", 5, 0, "scalar"),
+    ("float32", 1, 0, "scalar"), ("bfloat16", 8, 0, "vec")])
+def test_gs_route(dtype, W, offset, want):
+    """``route`` reads dtype, W and the block's alignment only: 16-byte
+    vectors where W is a multiple of the dtype's 16-byte width and the
+    block starts on a 16-byte boundary."""
+    block = _gs_view(np.ones((3, W), np.float32), getattr(torch, dtype),
+                     offset)
+    assert block.is_contiguous()
+    assert stages.route(block) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,W", ORDER_SHAPES)
+def test_residual_in_kernel_order_matches_plain_and_jax(H, W, dtype):
+    """The kernel-order residual is the same sum as the plain version's
+    and the Pallas kernel's, in another order: within RES_RTOL of both,
+    on every route the block can take."""
+    arrs = _inputs(H, W, H * W + 5)
+    dt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    args = [torch.from_numpy(a).to(dt) for a in arrs]
+    plain = ref.gs_stencil(*args)[1]
+    jres = jax_ops.gs_stencil(*(jnp.asarray(a, jdt) for a in arrs),
+                              impl="pallas_interpret")[1]
+    for which in _routes(args[0]):
+        got = stages.residual_in_kernel_order(*args, which=which)
+        assert got.dtype == torch.float32 and got.dim() == 0
+        np.testing.assert_allclose(float(got), float(plain), rtol=RES_RTOL)
+        np.testing.assert_allclose(float(got), float(jres), rtol=RES_RTOL)
+
+
+def _emulated_residual(args, which):
+    """The kernel's residual by walking its CTAs, warps and lanes one by
+    one with numpy fp32 scalars, as ``csrc/gs_stencil.cu`` adds: each
+    thread's rows then columns, ``__shfl_down_sync`` trees (a lane past
+    31 reads its own value), the same tree over the CTA's warp sums, the
+    last CTA's 32 lanes summing the partials strided by 32, then the
+    tree."""
+    f32 = np.float32
+    new, old = ref.gs_update(*args)
+    terms = (new - old).abs().numpy()
+    H, W = terms.shape
+    vec = stages.GS_VEC[args[0].dtype] if which == "vec" else 1
+    warps, rows = stages.GS_WARPS, stages.GS_ROWS
+    gx, gy = -(-W // (32 * vec)), -(-H // (warps * rows))
+
+    def shfl_tree(lanes):
+        v = [f32(x) for x in lanes]
+        for off in (16, 8, 4, 2, 1):
+            v = [f32(v[i] + (v[i + off] if i + off < 32 else v[i]))
+                 for i in range(32)]
+        return v[0]
+
+    def cta_sum(threads):
+        sums = [shfl_tree(threads[32 * w:32 * w + 32]) for w in range(warps)]
+        return shfl_tree(sums + [f32(0)] * (32 - warps))
+
+    partials = []
+    for by in range(gy):
+        for bx in range(gx):
+            threads = []
+            for w in range(warps):
+                for lane in range(32):
+                    c0, i0 = (bx * 32 + lane) * vec, (by * warps + w) * rows
+                    acc = f32(0)
+                    for i in range(i0, min(i0 + rows, H)):
+                        for c in range(c0, min(c0 + vec, W)):
+                            acc = f32(acc + terms[i, c])
+                    threads.append(acc)
+            partials.append(cta_sum(threads))
+    lanes = []
+    for lane in range(32):
+        acc = f32(0)
+        for k in range(lane, len(partials), 32):
+            acc = f32(acc + partials[k])
+        lanes.append(acc)
+    return shfl_tree(lanes)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,W", [(70, 264), (130, 40), (3, 17), (1, 8)])
+def test_residual_order_is_the_kernels_walk(H, W, dtype):
+    """The vectorised kernel-order residual equals, bitwise, a scalar
+    walk of the kernel's threads: the reshapes and trees pick the
+    kernel's order, on both routes, across several CTAs in each
+    direction."""
+    args = [torch.from_numpy(a).to(getattr(torch, dtype))
+            for a in _inputs(H, W, 3 * H + W)]
+    for which in _routes(args[0]):
+        got = stages.residual_in_kernel_order(*args, which=which)
+        assert np.float32(got.item()) == _emulated_residual(args, which), \
+            which
+
+
+def _card_inputs(H, W, dtype, seed, offset=0):
+    arrs = _inputs(H, W, seed)
+    return [_gs_view(arrs[0], dtype, offset, "cuda")] + [
+        torch.from_numpy(a).to("cuda", dtype) for a in arrs[1:]]
+
+
+def _assert_card_call(args, got, which):
+    """Block and edges bitwise equal to the plain version; the residual
+    bitwise equal to the kernel-order function, within 1e-5 of plain."""
+    new, res, edges = got
+    new_p, res_p, edges_p = ref.gs_stencil(*args)
+    assert torch.equal(new, new_p), which
+    for e, ep in zip(edges, edges_p):
+        assert e.is_contiguous() and torch.equal(e, ep), which
+    order = stages.residual_in_kernel_order(*args, which=which)
+    assert torch.equal(res, order), (which, res.item(), order.item())
+    np.testing.assert_allclose(res.item(), res_p.item(), rtol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,W", [(1024, 1024), (17, 5), (1000, 1023)])
-def test_kernel_matches_plain_on_card(H, W, dtype):
+@pytest.mark.parametrize("H,W,offset", [
+    (1024, 1024, 0), (17, 5, 0), (1000, 1023, 0), (1, 8, 0), (8, 1, 0),
+    (1, 1, 0), (70, 264, 0), (64, 1020, 0), (1024, 1024, 1)])
+def test_kernel_matches_plain_on_card(H, W, offset, dtype):
+    """Each call is one launch on the route ``route`` names; block and
+    edges bitwise, the residual in the kernel's order and repeatable."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    dt = getattr(torch, dtype)
-    arrs = [torch.from_numpy(a).to("cuda", dt)
-            for a in _inputs(H, W, H + W)]
-    before = stages.gs_stencil.launches
-    new, res, edges = stages.gs_stencil(*arrs)
-    _, res2, _ = stages.gs_stencil(*arrs)
-    new_p, res_p, edges_p = ref.gs_stencil(*arrs)
+    args = _card_inputs(H, W, getattr(torch, dtype), H + W, offset)
+    which = stages.route(args[0])
+    assert which == ("scalar" if offset or W % stages.GS_VEC[args[0].dtype]
+                     else "vec")
+    before = dict(stages.gs_stencil.route_launches)
+    got = stages.gs_stencil(*args)
+    _, res2, _ = stages.gs_stencil(*args)
     torch.cuda.synchronize()
-    assert stages.gs_stencil.launches == before + 2
-    assert torch.equal(new, new_p)
-    for e, ep in zip(edges, edges_p):
-        assert torch.equal(e, ep)
-    assert torch.equal(res, res2)            # no atomics: reproducible
-    np.testing.assert_allclose(res.item(), res_p.item(), rtol=1e-5)
+    assert stages.gs_stencil.route_launches[which] == before[which] + 2
+    _assert_card_call(args, got, which)
+    assert torch.equal(got[1], res2)         # no atomics: reproducible
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_four_streams_at_once_on_card():
+    """Four streams, each held back by a sleep and then launching 50 calls
+    (main-path blocks and ragged ones) from threads of their own, run at
+    once: every result bitwise equal to the same call made alone
+    (``chip_smoke.check_gs_streams``, phase 2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _chip_smoke().check_gs_streams(stages, torch.device("cuda"))
+
+
+@pytest.mark.cuda
+def test_graph_replay_on_card():
+    """A captured call replays as it ran: every launch leaves its ticket
+    at 0, so two replays give the eager result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = _card_inputs(1024, 1024, torch.float32, 9)
+    want = stages.gs_stencil(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        stages.gs_stencil(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = stages.gs_stencil(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+        for e, ew in zip(got[2], want[2]):
+            assert torch.equal(e, ew)
+
+
+@pytest.mark.cuda
+def test_one_kernel_a_call_on_card():
+    """torch.profiler over 10 calls sees 10 gs_stencil kernels and no
+    other device activity: no second pass, no memset, no halo cast
+    (``chip_smoke.check_gs_one_launch``, phase 2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _chip_smoke().check_gs_one_launch(stages, torch.device("cuda"))
 
 
 # ---------------------------------------------------------------------------
