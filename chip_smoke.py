@@ -46,7 +46,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    size (a yardstick, not a library version of the function).
 6. Level-A collectives on CUDA tensors: allreduce, reduce_scatter and a
    persistent plan over 4 ranks return CUDA tensors, bitwise equal to the
-   same run on CPU tensors and within rtol 1e-6 of a float64 sum.
+   same run on CPU tensors and within rtol 1e-6 of a float64 sum; an
+   alltoall delivers every block on the card, bitwise equal to the CPU run
+   and to the block sent.
+6b. IFSKer at the grid of ECMWF's TCo1279 forecast (the octahedral reduced
+   Gaussian grid O1280, 6,599,680 points): ``bench.ifsker.run_real`` with
+   128 float64 fields (6.76 GB a copy; IFS carries levels x variables, cut
+   to 128 fields so that the reference's data flow, about five copies at
+   once, fits one card), 4 logical ranks, 4 workers, 3 steps, all three
+   versions — CUDA tensors bitwise equal to one another, fields 0, 1, 126
+   and 127 within 1e-10 (the reference's cross-version bound) of a numpy
+   float64 replay of physics and the spectral step; seconds a step and
+   peak allocated memory per version; the memory free again afterwards.
+6c. ``bench.ifsker.bench()`` and ``bench.gauss_seidel.bench(smoke=True)``
+   on the card at their small default sizes, with all their asserts (the
+   fused leg launches ``gs_stencil`` 48 times).
+6d. Both ``run_traced`` legs on the card (Gauss–Seidel's three legs through
+   ``gs_stencil``, 144 launches, its pause-span and event-beats-sentinel
+   overlap exits); each exported trace valid under ``python -m
+   repro_torch.obs`` (exit 0).
+6e. Both ``run_elastic`` legs on the card with one injected rank death:
+   IFSKer's healed run bitwise equal to the clean run, Gauss–Seidel's
+   healed tail bitwise equal to the clean shrunken run from the same
+   checkpoint; an ``AsyncCheckpointer.save`` of a tensor written in place
+   right after it on its stream restores as the snapshot.
 7. The Level-B stage kernels against their plain versions on the card,
    bitwise: ``fused_combine`` in every variant (acc fp32/bf16 x got
    fp32/bf16/int8+scale x accumulate, and in place) at lengths 1, 257,
@@ -188,7 +211,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 After each served model, the memory it held must be free again without
 the cyclic garbage collector (within 1 GiB of what was allocated before).
-Prints the per-version wall time, the wall time of each ``sync_grads``
+Prints the per-version wall time (Gauss–Seidel s/iteration, IFSKer s/step),
+the wall time of each ``sync_grads``
 run, tokens/s and p50/p99 token latency per serving leg of each model,
 the ``kernels`` JSON line (eight kernels), the card's name and power
 limit, and last ``{"ok": true,
@@ -200,6 +224,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -667,9 +692,221 @@ def level_a_tensors(device) -> None:
                                                 want, rtol=1e-6, atol=1e-6):
                 raise AssertionError(f"Level-A persistent allreduce, "
                                      f"iteration {it}: wrong or off the card")
+    # alltoall: rank r's block for rank d, every block on the card
+    blocks = [[rng.standard_normal(1000 + 7 * d).astype(np.float32)
+               for d in range(N_RANKS)] for _ in range(N_RANKS)]
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        coll = Collectives(tac.CommWorld(N_RANKS))
+        outs[dev.type] = coll.run_group(
+            "alltoall", [{"blocks": [torch.from_numpy(b).to(dev)
+                                     for b in row]} for row in blocks])
+    for r in range(N_RANKS):
+        for src in range(N_RANKS):
+            g, c = outs["cuda"][r][src], outs["cpu"][r][src]
+            if not (isinstance(g, torch.Tensor) and g.is_cuda):
+                raise AssertionError(f"Level-A alltoall: rank {r}'s block "
+                                     f"from {src} is off the card")
+            if not torch.equal(g.cpu(), c) or not np.array_equal(
+                    c.numpy(), blocks[src][r]):
+                raise AssertionError(f"Level-A alltoall: rank {r}'s block "
+                                     f"from {src} differs")
     log("Level-A on CUDA tensors: allreduce (ring, segmented, doubling), "
         "reduce_scatter and a persistent plan return CUDA tensors, bitwise "
-        "equal to the CPU run, rtol 1e-6 of the float64 sum")
+        "equal to the CPU run, rtol 1e-6 of the float64 sum; alltoall "
+        "delivers every block on the card, bitwise equal to the CPU run")
+
+
+# Phase 6b: IFSKer at the grid of ECMWF's operational IFS forecast TCo1279,
+# the octahedral reduced Gaussian grid O1280: 2 x sum_{i=1}^{1280} (16 + 4i)
+# = 6,599,680 points (2^10 x 5 x 1289), 128 fields of it in float64 (6.76
+# GB a copy), on 4 logical ranks.
+IFS_GRID, IFS_FIELDS, IFS_STEPS, IFS_SEED = 6_599_680, 128, 3, 0
+IFS_REPLAY_FIELDS = (0, 1, 126, 127)
+
+
+def _ifsker_replay(fields, n_fields=IFS_FIELDS, n_grid=IFS_GRID,
+                   steps=IFS_STEPS, seed=IFS_SEED) -> dict:
+    """Fields of an IFSKer run, replayed in numpy float64: physics, then the
+    spectral step on the whole field, ``steps`` times (each field evolves
+    independently of the others and of the ranks)."""
+    init = np.random.default_rng(seed).standard_normal((n_fields, n_grid))
+    out = {f: init[f].copy() for f in fields}
+    del init
+    for f, x in out.items():
+        for _ in range(steps):
+            x = x + 0.1 * np.tanh(x) - 0.01 * x ** 3
+            F = np.fft.rfft(x)
+            F *= np.exp(-0.01 * np.arange(F.size))
+            x = np.fft.irfft(F, n=x.size)
+        out[f] = x
+    return out
+
+
+def ifsker_full_size(ifsker, device) -> dict:
+    """Phase 6b: the three IFSKer versions at the O1280 grid, bitwise equal
+    to one another; four fields within 1e-10 (the reference's
+    cross-version bound) of the numpy float64 replay, which runs in a
+    process of its own beside the card runs (one core of the host)."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        pending = pool.apply_async(_ifsker_replay, (IFS_REPLAY_FIELDS,))
+        result, base = _ifsker_versions(ifsker, device)
+        t0 = time.perf_counter()
+        replay = pending.get(timeout=900)
+    finally:
+        pool.terminate()
+        pool.join()
+    errs = {f: float(np.abs(base[f].cpu().numpy() - x).max())
+            for f, x in replay.items()}
+    del base
+    if not all(e <= 1e-10 for e in errs.values()):
+        raise AssertionError(f"IFSKer: fields against the numpy float64 "
+                             f"replay: max |diff| {errs}")
+    log(f"IFSKer O1280 ({IFS_FIELDS} fields x {IFS_GRID} points, float64, "
+        f"{N_RANKS} ranks, {IFS_STEPS} steps): three versions bitwise "
+        f"equal; fields {IFS_REPLAY_FIELDS} against the numpy float64 "
+        f"replay (waited {time.perf_counter() - t0:.1f} s for it): max "
+        f"|diff| {errs}")
+    return result
+
+
+def _ifsker_versions(ifsker, device):
+    """The three versions at the O1280 grid: per-version seconds a step,
+    wall seconds with the data and peak allocated GiB, and pure's fields
+    (every other version must equal them bitwise)."""
+    import torch
+    kw = dict(n_ranks=N_RANKS, workers=WORKERS, n_fields=IFS_FIELDS,
+              n_grid=IFS_GRID, steps=IFS_STEPS, seed=IFS_SEED,
+              device=device)
+    base, result = None, {}
+    for version in ifsker.VERSIONS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, stats = ifsker.run_real(version, **kw)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not (out.is_cuda and out.dtype == torch.float64
+                and tuple(out.shape) == (IFS_FIELDS, IFS_GRID)
+                and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"IFSKer {version}: {out.dtype} "
+                                 f"{tuple(out.shape)} on {out.device}, or "
+                                 f"not finite")
+        if base is None:
+            base = out
+        elif not torch.equal(out, base):
+            raise AssertionError(f"IFSKer {version} differs from pure: max "
+                                 f"|diff| {float((out - base).abs().max())}")
+        del out
+        result[version] = {"s_per_step": stats["seconds"] / IFS_STEPS,
+                           "wall_s": wall, "peak_gib": peak}
+        log(f"IFSKer O1280 {version}: {stats['seconds'] / IFS_STEPS:.6f} "
+            f"s/step, {wall:.3f} s with the data, peak allocated "
+            f"{peak:.2f} GiB")
+    return result, base
+
+
+def small_legs(ifsker, gs, stages) -> None:
+    """Phase 6c: both benchmarks' ``bench`` at their small default sizes on
+    the card, with all their asserts; the Gauss–Seidel fused leg launches
+    ``gs_stencil`` once a block (16 blocks x 3 iterations)."""
+    rows = ifsker.bench(print_fn=lambda *_: None)
+    stages.gs_stencil.launches = 0
+    rows += gs.bench(smoke=True, print_fn=lambda *_: None)
+    launches = stages.gs_stencil.launches
+    if launches != 16 * 3:
+        raise AssertionError(f"gs bench: {launches} gs_stencil launches, "
+                             f"expected 48")
+    log(f"bench legs on the card: ifsker.bench() and "
+        f"gauss_seidel.bench(smoke=True) held, {len(rows)} rows, fused leg "
+        f"{launches} gs_stencil launches")
+
+
+def traced_legs(ifsker, gs, stages, tmp: str) -> None:
+    """Phase 6d: both ``run_traced`` legs on the card (the Gauss–Seidel
+    legs through ``gs_stencil``, with its pause-span and overlap-ordering
+    exits); each exported trace through ``python -m repro_torch.obs``."""
+    import os
+    stages.gs_stencil.launches = 0
+    gs.run_traced(os.path.join(tmp, "gs.json"), print_fn=log)
+    launches = stages.gs_stencil.launches
+    want = len(gs.TRACED_LEGS) * 16 * 3
+    if launches != want:
+        raise AssertionError(f"traced legs: {launches} gs_stencil launches, "
+                             f"expected {want}")
+    ifsker.run_traced(os.path.join(tmp, "ifsker.json"), print_fn=log)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        str(Path(__file__).resolve().parent / "src"),
+        os.environ.get("PYTHONPATH")))))
+    for name in ("gs.json", "ifsker.json"):
+        r = subprocess.run([sys.executable, "-m", "repro_torch.obs",
+                            os.path.join(tmp, name)], env=env,
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"python -m repro_torch.obs {name}: exit "
+                                 f"{r.returncode}\n{r.stdout}\n{r.stderr}")
+    log(f"traced legs: gs_stencil launched {launches} times in the "
+        f"Gauss-Seidel legs; both traces valid under python -m "
+        f"repro_torch.obs")
+
+
+def elastic_legs(ifsker, gs, device, tmp: str) -> None:
+    """Phase 6e: both elastic legs on the card with one injected rank
+    death, as tests/test_e2e_parity.py holds them, and an asynchronous
+    checkpoint of a tensor written in place right after ``save``."""
+    import os
+    import torch
+    from repro_torch import checkpoint
+
+    def d(name):
+        return os.path.join(tmp, name)
+
+    clean, ic = ifsker.run_elastic(d("ia"), steps=3, seed=11, device=device)
+    healed, ih = ifsker.run_elastic(d("ib"), steps=3, seed=11, kill_step=2,
+                                    kill_rank=3, device=device)
+    if ic["recoveries"] or len(ih["recoveries"]) != 1 or ih["size"] != 3 \
+            or ih["recoveries"][0]["resumed_step"] != 1:
+        raise AssertionError(f"IFSKer elastic: {ic} / {ih}")
+    if not (healed.is_cuda and torch.equal(healed, clean)):
+        raise AssertionError("IFSKer elastic: the healed run differs from "
+                             "the clean run")
+    healed, info = gs.run_elastic(d("ga"), n_ranks=4, nby=3, nbx=3,
+                                  kill_iter=3, kill_rank=1, bs=4, iters=4,
+                                  seed=7, device=device)
+    rec = info["recoveries"][0] if info["recoveries"] else {}
+    if rec.get("survivors") != 3 or rec.get("resumed_step") != 2 \
+            or info["decomposition"] != (3, 2, 6):
+        raise AssertionError(f"Gauss-Seidel elastic: {info}")
+    state, step = checkpoint.restore_checkpoint(
+        d("ga"), {"grid": torch.empty(24, 24, dtype=torch.float64)},
+        device=device, step=rec["resumed_step"])
+    checkpoint.save_checkpoint(d("gb"), state, step=step)
+    clean, ic = gs.run_elastic(d("gb"), n_ranks=3, nby=2, nbx=6, bs=4,
+                               iters=4, seed=7, device=device)
+    if ic["recoveries"] or not (healed.is_cuda
+                                and torch.equal(healed, clean)):
+        raise AssertionError("Gauss-Seidel elastic: the healed tail differs "
+                             "from the clean shrunken run")
+    side = torch.cuda.Stream(device)
+    cp = checkpoint.AsyncCheckpointer(d("async"))
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)     # the producer is still running
+        x = torch.arange(1 << 20, dtype=torch.float32, device=device)
+        done = cp.save({"x": x}, step=1)
+        x.add_(1.0)                        # must not reach the file
+    cp.close()
+    got, _ = checkpoint.restore_checkpoint(d("async"),
+                                           {"x": torch.empty(1 << 20)})
+    if not done.test() or not torch.equal(
+            got["x"], torch.arange(1 << 20, dtype=torch.float32)):
+        raise AssertionError("async checkpoint: the file is not the "
+                             "snapshot at save()")
+    log("elastic legs on the card: IFSKer healed run bitwise equal to the "
+        "clean run (4 -> 3 ranks); Gauss-Seidel healed tail bitwise equal "
+        "to the clean shrunken run; an async checkpoint holds the snapshot "
+        "at save() under a later in-place write")
 
 
 def _stage_inputs(m: int, device, seed: int = 0):
@@ -2167,6 +2404,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.bench import gauss_seidel as gs
+    from repro_torch.bench import ifsker
     from repro_torch.kernels import build, collective_stages as stages, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
@@ -2198,6 +2436,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     level_a_tensors(device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ifs = ifsker_full_size(ifsker, device)
+    freed("IFSKer O1280", before)
+    small_legs(ifsker, gs, stages)
+    with tempfile.TemporaryDirectory() as tmp:
+        traced_legs(ifsker, gs, stages, tmp)
+        elastic_legs(ifsker, gs, device, tmp)
+    torch.cuda.empty_cache()
+
     stage_err = check_stage_kernels(stages, ref, device)
     sync_s, stage_launches = level_b_main_path(stages, device)
     stage_t = time_stage_kernels(stages, ref, device)
@@ -2249,6 +2497,9 @@ def main() -> int:
     freed("olmoe-1b-7b", before)
     gmm_t = time_moe_gmm(mg, ref, device)
     flash_t.update(time_flash_attention(fa, ref, device, (OLMOE_PREFILL,)))
+    for version, v in ifs.items():
+        log(f"wall IFSKer O1280 {version}: {v['s_per_step']:.6f} s/step, "
+            f"peak allocated {v['peak_gib']:.2f} GiB")
     for arch, run in (("granite-3-2b", serve), ("zamba2-2.7b", zserve),
                       ("xlstm-350m", xserve), ("olmoe-1b-7b", oserve)):
         log(f"serve {arch}, one request alone: prefill "

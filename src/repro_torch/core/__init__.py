@@ -5,8 +5,9 @@ proposed by the paper (§4) with their original names, the task runtime
 that implements them, the TAC library (the TAMPI analogue, with CUDA events
 as the device completion test), the schedule IR with its host executor
 (Level A), and its Level-B executor on logical ranks (``mesh``,
-``lowering``, ``overlap``, ``pipeline``), and the ULFM resilience helpers
-(``resilience``).  The simulator of ``repro.core`` is still to come.
+``lowering``, ``overlap``, ``pipeline``), the ULFM resilience helpers
+(``resilience``) and the deterministic makespan simulator (``simulate``)
+that replays the benchmarks' task graphs for their scaling curves.
 """
 
 from .events import (BlockingContext, EventCounter,
@@ -25,6 +26,7 @@ from . import collectives
 from . import options
 from . import mesh, lowering, overlap, pipeline
 from . import resilience
+from . import simulate
 from .resilience import FaultInjector
 from .schedule import Schedule, build_neighbor, best_schedule
 from .collectives import (Collectives, CollectiveHandle, HaloExchange,
@@ -63,4 +65,6 @@ __all__ = [
     "RankFailedError", "CommRevokedError", "resilience", "FaultInjector",
     # Level-B executor on logical ranks
     "mesh", "lowering", "overlap", "pipeline",
+    # deterministic makespan simulator (the scaling curves)
+    "simulate",
 ]

@@ -41,7 +41,7 @@ runtime, built on the failure model in :mod:`repro_torch.core.tac`:
   first post after recovery; :meth:`repro_torch.core.tac.CommGroup.cart` /
   :meth:`~repro_torch.core.tac.CommGroup.graph` re-shape the shrunken group
   with a fresh topology; the benchmarks resume from
-  the checkpoint module (not ported yet) at the last completed step.
+  :mod:`repro_torch.checkpoint` at the last completed step.
 
 :class:`FaultInjector` is the test-first half: it kills a rank either
 immediately (:meth:`FaultInjector.kill`) or deterministically at the

@@ -416,6 +416,7 @@ class CommWorld:
         self.epoch = 0                        # bumped on fail/revoke/shrink
         self._failed: set = set()             # dead world ranks
         self._revoked = False                 # whole-world revoke in effect
+        self._revoked_groups: set = set()     # revoked group context ids
         self._shrink_calls = [0] * size       # per-rank shrink generation
         self._shrinks: Dict[int, dict] = {}   # generation -> rank -> handle
         self._fault_hook: Optional[Callable] = None   # FaultInjector tap
@@ -423,11 +424,22 @@ class CommWorld:
     def _key(self, src: int, dst: int, tag: Any) -> Tuple[int, int, Any]:
         return (src, dst, tag)
 
-    def _failed_op(self, handle: EventHandle, src: int,
-                   dst: int) -> EventHandle:
+    def _group_revoked(self, tag: Any) -> Any:
+        """The revoked group whose tag space ``tag`` lies in, else None."""
+        if (isinstance(tag, tuple) and len(tag) == 3 and tag[0] == "grp"
+                and tag[1] in self._revoked_groups):
+            return tag[1]
+        return None
+
+    def _failed_op(self, handle: EventHandle, src: int, dst: int,
+                   tag: Any = None) -> EventHandle:
         """Fail a fresh handle for an op that can never complete."""
+        gid = self._group_revoked(tag)
         if self._revoked:
             handle.fail(CommRevokedError())
+        elif gid is not None:
+            handle.fail(CommRevokedError(
+                message=f"communicator {gid!r} revoked"))
         else:
             if src in self._failed:
                 dead: Optional[int] = src
@@ -445,20 +457,28 @@ class CommWorld:
         hook = self._fault_hook
         if hook is not None:
             hook("isend", src, dst, tag)
-        if self._revoked or src in self._failed or dst in self._failed:
-            # ULFM: an op naming a dead peer (or posted on a revoked
-            # communicator) completes erroneously instead of matching.
-            return self._failed_op(_SendHandle(payload, True), src, dst)
         h = _SendHandle(payload, synchronous)
         key = self._key(src, dst, tag)
         matched = None
         with self._lock:
-            self.stats["messages"] += 1
-            recvs = self._recvs.get(key)
-            if recvs:
-                matched = recvs.pop(0)
-            else:
-                self._msgs.setdefault(key, []).append(h)
+            # Checked under the lock that revoke() and fail_rank() sweep
+            # the pending ops under: checked before it, a revoke landing
+            # in between would miss this op and leave it pending forever.
+            dead = (self._revoked or src in self._failed
+                    or dst in self._failed
+                    or self._group_revoked(tag) is not None)
+            if not dead:
+                self.stats["messages"] += 1
+                recvs = self._recvs.get(key)
+                if recvs:
+                    matched = recvs.pop(0)
+                else:
+                    self._msgs.setdefault(key, []).append(h)
+        if dead:
+            # ULFM: an op naming a dead peer (or posted on a revoked
+            # communicator) completes erroneously instead of matching.
+            return self._failed_op(_SendHandle(payload, True), src, dst,
+                                   tag)
         if matched is not None:
             if _tr.TRACING:
                 _tr.TRACER.instant("handle", "match", src=src, dst=dst,
@@ -474,17 +494,21 @@ class CommWorld:
         hook = self._fault_hook
         if hook is not None:
             hook("irecv", src, dst, tag)
-        if self._revoked or src in self._failed or dst in self._failed:
-            return self._failed_op(_RecvHandle(), src, dst)
         key = self._key(src, dst, tag)
         r = _RecvHandle()
         matched = None
         with self._lock:
-            msgs = self._msgs.get(key)
-            if msgs:
-                matched = msgs.pop(0)
-            else:
-                self._recvs.setdefault(key, []).append(r)
+            dead = (self._revoked or src in self._failed
+                    or dst in self._failed
+                    or self._group_revoked(tag) is not None)
+            if not dead:
+                msgs = self._msgs.get(key)
+                if msgs:
+                    matched = msgs.pop(0)
+                else:
+                    self._recvs.setdefault(key, []).append(r)
+        if dead:
+            return self._failed_op(r, src, dst, tag)
         if matched is not None:
             if _tr.TRACING:
                 _tr.TRACER.instant("handle", "match", src=src, dst=dst,
@@ -700,11 +724,17 @@ class CommWorld:
             h.fail(exc)
 
     def revoke_group(self, gid: Any) -> None:
-        """Revoke one sub-communicator's traffic only (its tag space)."""
+        """Revoke one sub-communicator's traffic only (its tag space):
+        pending group ops fail now, and ops posted on the group later fail
+        at post time (a revoked communicator stays revoked; the survivors
+        shrink to a new one).  Without the latter, a rank posting its
+        round after a peer's revoke would park forever on peers that have
+        already aborted theirs."""
         def is_group_tag(tag: Any) -> bool:
             return (isinstance(tag, tuple) and len(tag) == 3
                     and tag[0] == "grp" and tag[1] == gid)
         with self._lock:
+            self._revoked_groups.add(gid)
             self.epoch += 1
             to_fail = []
             for store in (self._msgs, self._recvs):
@@ -858,9 +888,9 @@ class CommGroup:
                          if wr in self.world.failed)
 
     def revoke(self) -> None:
-        """Revoke this sub-communicator only (its tag space): pending
-        group traffic fails with :class:`CommRevokedError`; the world and
-        sibling groups are untouched."""
+        """Revoke this sub-communicator only (its tag space): pending and
+        later group traffic fails with :class:`CommRevokedError`; the
+        world and sibling groups are untouched."""
         self.world.revoke_group(self.gid)
 
     # -- rebuild helpers (the recovery path) --------------------------------

@@ -234,11 +234,32 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return d.masked_fill(~mask, float("-inf"))
 
 
+def _contract(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of fp32 operands, rounded once to fp32.
+
+    On the CPU the products are summed in float64.  There ``einsum`` runs
+    on MKL's batched GEMM, which does not sum in the same order from call
+    to call: under load one worker thread's share of the batches can take
+    another order (one (batch, head) slice of y moved by up to 3.8e-4 in a
+    process, bitwise-stable ones around it).  The scan's sums cancel
+    terms up to ~50 to values near 0, so such a reorder moved y by up to
+    3.7x the cross-framework bound (2e-5 of max|y|).  Summed in float64,
+    any order agrees to ~1e-13 of the largest term, far below the one
+    fp32 rounding that follows, so the result no longer depends on the
+    order, the thread split or the load.  On the card cuBLAS sums in a
+    fixed order and the products stay fp32, as the kernel computes them.
+    """
+    if operands[0].device.type != "cpu":
+        return torch.einsum(eq, *operands)
+    return torch.einsum(eq, *(o.double() for o in operands)).float()
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 B: torch.Tensor, C: torch.Tensor, *, chunk: int,
                 init_state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan (Mamba2's "ssd_minimal_discrete"), fp32 einsums --
+    """Chunked SSD scan (Mamba2's "ssd_minimal_discrete"), fp32 einsums
+    (summed in float64 on the CPU: :func:`_contract`) --
     ``repro/kernels/ref.py`` ``ssd_chunked`` and the plain version of the
     ``mamba2_ssd`` kernel, whose cumsum order it takes
     (:func:`_block_cumsum`).
@@ -268,12 +289,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # 1. intra-chunk (diagonal block) outputs
     L = torch.exp(_segsum(dA_c))                        # (b,h,c,l,l)
-    Y_diag = torch.einsum("bcln,bcmn,bhclm,bcmhp->bclhp", C_c, B_c, L, xd_c)
+    Y_diag = _contract("bcln,bcmn,bhclm,bcmhp->bclhp", C_c, B_c, L, xd_c)
 
     # 2. per-chunk final states
     dA_cum = _block_cumsum(dA_c)                        # (b,h,c,l)
     decay_states = torch.exp(dA_cum[..., -1:] - dA_cum)
-    states = torch.einsum("bcln,bhcl,bclhp->bchpn", B_c, decay_states, xd_c)
+    states = _contract("bcln,bhcl,bclhp->bchpn", B_c, decay_states, xd_c)
 
     # 3. inter-chunk recurrence; prev[:, c] is the state ENTERING chunk c
     chunk_decay = torch.exp(dA_cum[..., -1])            # (b,h,c)
@@ -286,7 +307,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     prev_states = torch.stack(prev, dim=1)              # (b,c,h,p,n)
 
     # 4. chunk-input contribution
-    Y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", C_c, prev_states,
+    Y_off = _contract("bcln,bchpn,bhcl->bclhp", C_c, prev_states,
                          torch.exp(dA_cum))
     y = (Y_diag + Y_off).reshape(b, s, h, p).to(x.dtype)
     return y, state

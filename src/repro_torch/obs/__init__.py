@@ -25,8 +25,9 @@ Enable it with::
         ...                       # run the workload
         obs.export_trace("out.json", tracer=tr)
 
-The trace-file CLI (``python -m repro.obs out.json`` in the JAX package)
-is not ported yet; :func:`validate_trace` and :func:`summarize` are.
+``python -m repro_torch.obs out.json`` validates a trace file against
+:data:`SPAN_SCHEMA` and prints its summary (exit 0 when valid, 1 on a
+violation, 2 without a file).
 """
 
 from __future__ import annotations

@@ -135,3 +135,19 @@ def test_run_real_frees_its_blocks_without_gc(version, block_impl):
         assert blocks() == before
     finally:
         gc.enable()
+
+
+def test_bench_smoke_on_the_cpu():
+    """The reference's ``bench(smoke=True)`` through the port: five versions
+    and both notify backends bitwise on the float64 path, the fused leg
+    (``gs_stencil``'s plain version on the CPU) within 1e-4, and the
+    simulated point with event-bound below sentinel, as the same rows."""
+    rows = gs.bench(smoke=True, device="cpu", print_fn=lambda *_: None)
+    legs = [f"gs_e2e_{v}_{nb}" for v in ("interop-blk", "interop-nonblk")
+            for nb in NOTIFY]
+    assert [r[0] for r in rows] == legs + ["gs_fused_stencil_interop"] + [
+        f"gs_smoke_{v}" for v in gs.VERSIONS]
+    for name, us, _ in rows[-len(gs.VERSIONS):]:
+        v = name[len("gs_smoke_"):]
+        assert us == jax_gs.simulate_version(v, n_ranks=4, nby=4, nbx=4,
+                                             iters=4) * 1e6

@@ -269,3 +269,53 @@ def test_hierarchical_allreduce_matches_reference(notify, mode):
     want, got = _both(_hierarchical_allreduce, notify, mode=mode)
     assert got == want
     assert len(set(got[0] + got[1])) == 1     # every rank, both drivers
+
+
+# ---------------------------------------------------------------------------
+# ULFM revocation: fixed in the port, so these hold for the port alone
+# ---------------------------------------------------------------------------
+def test_group_revoke_fails_later_posts():
+    """A revoked sub-communicator stays revoked (MPI_Comm_revoke): ops
+    posted on it after the revoke fail at post time with
+    ``CommRevokedError``, as pending ones do; the world and a sibling group
+    still match.  (Before, only pending ops failed: a rank that posted its
+    halo round after a peer's revoke parked forever, which hung the
+    Gauss–Seidel elastic leg in about one run in 40.)"""
+    tac = torch_core.tac
+    world = tac.CommWorld(3)
+    group, sibling = world.group([0, 1, 2]), world.group([0, 1])
+    pending = group.irecv(src=1, dst=0, tag="t")
+    group.revoke()
+    assert pending.test() and isinstance(pending.error,
+                                         tac.CommRevokedError)
+    late = [group.irecv(src=2, dst=0, tag="u"),
+            group.isend(np.ones(2), src=0, dst=2, tag="u")]
+    for h in late:
+        assert h.test() and isinstance(h.error, tac.CommRevokedError)
+    for comm in (world, sibling):
+        r = comm.irecv(src=1, dst=0, tag="v")
+        comm.isend(np.arange(3.0), src=1, dst=0, tag="v")
+        assert r.test() and r.error is None
+        np.testing.assert_array_equal(r.result, np.arange(3.0))
+
+
+def test_revoke_racing_a_post_never_leaves_it_pending():
+    """A post and a revoke on other threads: the post either matches the
+    sweep or sees the revoke, never neither (the check and the store share
+    the world lock)."""
+    tac = torch_core.tac
+    for trial in range(200):
+        world = tac.CommWorld(2)
+        go = threading.Barrier(2)
+        box = {}
+
+        def post():
+            go.wait()
+            box["h"] = world.irecv(src=1, dst=0, tag=trial)
+
+        t = threading.Thread(target=post)
+        t.start()
+        go.wait()
+        world.revoke()
+        t.join()
+        assert box["h"].test(), trial
