@@ -209,11 +209,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
     and of ``flash_attention`` at olmoe's prefill shape beside
     ``scaled_dot_product_attention``, as in phase 12.
 
+T1. ``flash_attention``'s log-sum-exp (``return_lse=True``) against its
+    plain version's at every phase-10 shape, two shapes with rows that see
+    no key (a window ending before T; T = 0) and granite-3-2b's train shape
+    (1, 4096, 32/8, 64), fp32 and bf16: within 1e-5 and 2e-3 of the
+    largest lse, rows with no visible key NEG_INF in both, ``out``
+    bitwise equal to ``out`` without lse.
+T2. At the train shape in bf16: dq, dk, dv through ``ops.flash_attention``
+    (kernel forward with lse, plain backward) against an all-plain forward
+    and backward, within 2e-2 of the largest |grad|, one launch; the plain
+    backward's and the kernel forward's times (with and without lse), and
+    the forward timed as in phase 12 at that shape; ``mamba2_ssd``,
+    ``mlstm_chunk`` and ``moe_gmm`` raise under grad on the card and
+    launch under ``no_grad``.
+T3. ``launch.train`` trains granite-3-2b at full width and depth
+    (2,533,531,648 parameters, bf16, AdamW on fp32 masters) for 3 steps of
+    1 x 4096 tokens: exactly 40 ``flash_attention`` launches a step,
+    finite losses, step 1's loss and grad norm within 1e-2 and 5e-2 of a
+    twin step with plain attention; s/step, tokens/s and peak allocated
+    memory; the memory free afterwards.
+T4. The manual-DP step on granite-3-2b at full width cut to 8 layers, 4
+    logical ranks of 1 x 1024 tokens, for fused, bucketed and sentinel:
+    ranks bitwise equal after each of two steps, the modes within the
+    reference's bounds (parameters scaled to one bf16 ulp), sentinel's
+    token waits counted; s/step per mode.
+T5. Smoke granite trained through ``launch.train`` with asynchronous
+    checkpoints, restored at step 6 and continued to 12: bitwise equal to
+    an uninterrupted 12-step run.
+
 After each served model, the memory it held must be free again without
 the cyclic garbage collector (within 1 GiB of what was allocated before).
 Prints the per-version wall time (Gauss–Seidel s/iteration, IFSKer s/step),
 the wall time of each ``sync_grads``
 run, tokens/s and p50/p99 token latency per serving leg of each model,
+the training phases' s/step, tokens/s and peak memory,
 the ``kernels`` JSON line (eight kernels), the card's name and power
 limit, and last ``{"ok": true,
 "device": {...}}``.  It imports nothing of the JAX package.
@@ -2383,6 +2412,374 @@ def time_moe_gmm(mg, ref, device) -> dict:
     return out
 
 
+# Training (phases T1-T5).  granite-3-2b's train shape: one sequence of the
+# repo's TRAIN_4K length (4096), 32 query heads over 8 kv heads of 64.
+GRANITE_TRAIN = (1, 4096, 4096, 32, 8, 64, True, None)
+# Rows with no visible key: a bidirectional window that ends before T
+# (positions from T + window on), and a call with no key at all.
+LSE_NO_KEY = ((1, 300, 100, 4, 2, 64, False, 50),
+              (2, 8, 0, 4, 2, 16, True, None))
+# The lse the kernel writes against the plain version's, as max|diff| /
+# max|plain lse| over the rows with a visible key: both compute m + log(l)
+# in fp32 from the same scores in other orders (fp32: a few ulps of the
+# largest lse), the bf16 kernel with ex2.approx and l summed by quads.
+LSE_RTOL = {"float32": 1e-5, "bfloat16": 2e-3}
+# T3: step 1's loss and grad norm against a twin step whose attention is
+# all plain (forward and backward), same seed, same batch.  The two differ
+# only in attention's forward: bf16 outputs one ulp apart on some elements
+# (phase 10) and the lse the backward reads.  Through 40 layers of bf16
+# matmuls that moves the loss by about 1e-3 of itself and each bf16
+# gradient leaf by some ulps; the gates leave a decade of room.
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-2, 5e-2
+TRAIN_STEPS = 3
+# T4: granite-3-2b at full width cut to 8 of its 40 layers, 4 logical
+# ranks of 1 x 1024 tokens each.
+DP_LAYERS, DP_RANKS, DP_SEQ = 8, 4, 1024
+# The modes' agreement: tests/test_distributed.py's
+# test_manual_grad_sync_modes_match holds fp32 parameters to atol 1e-5,
+# rtol 1e-4 (about 840 fp32 ulps); a bf16 parameter moves in steps of 2^-8
+# of itself, so rtol is scaled to one bf16 ulp, 2^-8.  Loss (1e-5) and
+# grad norm (1e-4) keep the reference's bounds.
+DP_PARAM_ATOL, DP_PARAM_RTOL = 1e-5, 2.0 ** -8
+DP_LOSS_ATOL, DP_GNORM_ATOL = 1e-5, 1e-4
+
+
+def check_flash_lse(fa, ref, device) -> float:
+    """Phase T1: the kernel's lse against the plain version's at every
+    phase-10 shape and granite's train shape, fp32 and bf16, within
+    ``LSE_RTOL`` of the largest lse over the rows with a visible key; the
+    rows with none hold NEG_INF in both; ``out`` with ``return_lse=True``
+    bitwise equal to ``out`` without it.  Returns the bf16 error at the
+    train shape."""
+    import torch
+    worst = 0.0
+    for case in FLASH_CASES + LSE_NO_KEY + (GRANITE_TRAIN,):
+        for dt in ("float32", "bfloat16"):
+            causal, window = case[6], case[7]
+            q, k, v = _qkv(case, getattr(torch, dt), device,
+                           seed=sum(case[:6]))
+            plain = fa.flash_attention(q, k, v, causal=causal, window=window)
+            out, lse = fa.flash_attention(q, k, v, causal=causal,
+                                          window=window, return_lse=True)
+            _, want = ref.flash_attention(q, k, v, causal=causal,
+                                          window=window, return_lse=True)
+            torch.cuda.synchronize()
+            tag = f"flash_attention lse {dt} {case}"
+            if not torch.equal(out, plain):
+                raise AssertionError(f"{tag}: out with return_lse differs "
+                                     f"from out without it")
+            if lse.shape != want.shape or lse.dtype != torch.float32:
+                raise AssertionError(f"{tag}: lse {lse.dtype} "
+                                     f"{tuple(lse.shape)}")
+            seen = want > ref.NEG_INF / 2
+            if not torch.equal(seen, lse > ref.NEG_INF / 2) or not bool(
+                    (lse[~seen] == ref.NEG_INF).all()):
+                raise AssertionError(f"{tag}: rows with no visible key "
+                                     f"differ from the plain version's")
+            err = (_max_abs_diff(lse[seen], want[seen])
+                   / float(want[seen].abs().max())) if seen.any() else 0.0
+            if not err <= LSE_RTOL[dt]:
+                raise AssertionError(f"{tag}: max |lse - plain| / max |plain"
+                                     f"| {err} beyond {LSE_RTOL[dt]}")
+            if case == GRANITE_TRAIN and dt == "bfloat16":
+                worst = err
+            log(f"{tag}: max |lse - plain| / max |plain| {err:.3g} (<= "
+                f"{LSE_RTOL[dt]}), {int((~seen).sum())} rows with no key, "
+                f"out bitwise equal without lse")
+    return worst
+
+
+def check_attention_grads(fa, ref, device) -> dict:
+    """Phase T2: at granite's train shape in bf16, dq, dk and dv through
+    ``ops.flash_attention`` (the kernel's forward with its lse, the plain
+    backward) against an all-plain forward and backward
+    (``impl="ref"``), each within ``FLASH_TOL`` of the largest |grad|; the
+    kernel launched once.  Then the plain backward's and the kernel
+    forward's times at that shape (the yardstick of a hand-written
+    backward), and the kernels with no backward refusing a gradient on the
+    card."""
+    import torch
+    from repro_torch.kernels import ops
+    causal = GRANITE_TRAIN[6]
+    q, k, v = (t.requires_grad_(True) for t in
+               _qkv(GRANITE_TRAIN, torch.bfloat16, device, seed=5))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    dout = torch.randn(q.shape, generator=gen, device=device).to(q.dtype)
+    fa.flash_attention.launches = 0
+    out = ops.flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    launches = fa.flash_attention.launches
+    want = torch.autograd.grad(
+        ops.flash_attention(q, k, v, causal=causal, impl="ref"), (q, k, v),
+        dout)
+    torch.cuda.synchronize()
+    if launches != 1 or fa.flash_attention.launches != 1:
+        raise AssertionError(f"attention grads: {launches} kernel launches "
+                             f"on the autograd path (1 expected)")
+    tol = FLASH_TOL["bfloat16"]
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = _max_abs_diff(g, w) / float(w.abs().max())
+        if g.dtype != torch.bfloat16 or not errs[name] <= tol:
+            raise AssertionError(f"attention grads {name}: {g.dtype}, max "
+                                 f"|diff| / max |plain| {errs[name]} beyond "
+                                 f"{tol}")
+    log(f"attention grads {GRANITE_TRAIN} bf16, kernel forward + plain "
+        f"backward against plain + plain, max |diff| / max |plain|: "
+        + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        + f" (<= {tol})")
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o, lse = fa.flash_attention(qd, kd, vd, causal=causal, return_lse=True)
+    t = {"bwd_ms": time_ms(lambda i: ref.attention_bwd(
+             qd, kd, vd, o, lse, dout, causal=causal), 3, rounds=3),
+         "fwd_lse_ms": time_ms(lambda i: fa.flash_attention(
+             qd, kd, vd, causal=causal, return_lse=True), 20),
+         "fwd_ms": time_ms(lambda i: fa.flash_attention(
+             qd, kd, vd, causal=causal), 20)}
+    log(f"attention at {GRANITE_TRAIN} bf16: kernel forward "
+        f"{t['fwd_ms']:.4f} ms, with lse {t['fwd_lse_ms']:.4f} ms; plain "
+        f"backward {t['bwd_ms']:.3f} ms")
+
+    check_grad_refusals(device)
+    return dict(errs, **t)
+
+
+def check_grad_refusals(device) -> None:
+    """``ops.mamba2_ssd``, ``ops.mlstm_chunked`` and ``ops.moe_gmm`` given
+    a CUDA input that requires grad raise ``NotImplementedError`` naming
+    the kernel, before any launch; under ``no_grad`` they launch."""
+    import torch
+    from repro_torch.kernels import mamba2_ssd, mlstm_chunk, moe_gmm, ops
+    f32 = dict(device=device, dtype=torch.float32)
+    x = torch.randn(1, 64, 2, 16, **f32).requires_grad_(True)
+    calls = {
+        "mamba2_ssd": lambda: ops.mamba2_ssd(
+            x, torch.rand(1, 64, 2, **f32), -torch.rand(2, **f32),
+            torch.randn(1, 64, 16, **f32), torch.randn(1, 64, 16, **f32),
+            chunk=32),
+        "mlstm_chunk": lambda: ops.mlstm_chunked(
+            x, x.detach(), x.detach(), torch.randn(1, 64, 2, **f32),
+            torch.randn(1, 64, 2, **f32), chunk=32),
+        "moe_gmm": lambda: ops.moe_gmm(
+            x.reshape(4, 32, 16), torch.randn(4, 16, 8, **f32))}
+    wrappers = {"mamba2_ssd": mamba2_ssd.mamba2_ssd,
+                "mlstm_chunk": mlstm_chunk.mlstm_chunk,
+                "moe_gmm": moe_gmm.moe_gmm}
+    for name, call in calls.items():
+        before = wrappers[name].launches
+        try:
+            call()
+        except NotImplementedError as exc:
+            if name not in str(exc) or wrappers[name].launches != before:
+                raise AssertionError(f"{name} under grad: {exc!r}, "
+                                     f"{wrappers[name].launches - before} "
+                                     f"launches")
+        else:
+            raise AssertionError(f"{name} under grad on the card did not "
+                                 f"raise")
+        with torch.no_grad():
+            call()
+        if wrappers[name].launches != before + 1:
+            raise AssertionError(f"{name} under no_grad: not launched")
+    log("mamba2_ssd, mlstm_chunk and moe_gmm under grad on the card: "
+        "NotImplementedError, no launch; under no_grad: launched")
+
+
+def _train_twin_step(cfg, device) -> tuple:
+    """Step 1's loss and grad norm of granite with all-plain attention,
+    from the training run's seed and first batch."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.core.overlap import tree_flatten
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.models import model
+    from repro_torch.runtime import steps
+    params = model.init(cfg, 0, device).requires_grad_(True)
+    batch = to_device(SyntheticLMData(cfg, batch=1, seq=GRANITE_TRAIN[1],
+                                      seed=0).batch_at(0), device)
+    total, loss = steps._loss_fn(params, batch, cfg, None, attn_impl="ref")
+    total.backward()
+    gnorm = optim.global_norm(
+        [p.grad for p in tree_flatten(model.param_tree(params))[0]])
+    out = float(loss.detach()), float(gnorm)
+    del params, batch, total, loss, gnorm
+    return out
+
+
+def train_granite(fa, device) -> dict:
+    """Phase T3: ``launch.train`` trains granite-3-2b at full width and
+    depth for ``TRAIN_STEPS`` steps of 1 x 4096 tokens (auto grad sync):
+    exactly 40 ``flash_attention`` launches a step, finite losses, step
+    1's loss and grad norm against the twin step with plain attention."""
+    import math
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train
+    fa.flash_attention.launches = 0
+    rep = train.run(["--arch", "granite-3-2b", "--scale", "full",
+                     "--steps", str(TRAIN_STEPS), "--batch", "1",
+                     "--seq", str(GRANITE_TRAIN[1]), "--log-every", "1",
+                     "--device", str(device)])
+    launches = fa.flash_attention.launches
+    torch.cuda.synchronize()
+    log_ = rep["log"]
+    if rep["n_params"] != GRANITE_PARAMS:
+        raise AssertionError(f"granite train: {rep['n_params']} parameters")
+    if launches != 40 * TRAIN_STEPS:
+        raise AssertionError(f"granite train: {launches} flash_attention "
+                             f"launches over {TRAIN_STEPS} steps (40 a "
+                             f"step expected)")
+    if len(log_) != TRAIN_STEPS or not all(
+            math.isfinite(e["loss"]) and math.isfinite(e["grad_norm"])
+            for e in log_):
+        raise AssertionError(f"granite train: log {log_}")
+    loss, gnorm = _train_twin_step(configs.get("granite-3-2b"), device)
+    dl = abs(log_[0]["loss"] - loss) / abs(loss)
+    dg = abs(log_[0]["grad_norm"] - gnorm) / gnorm
+    if not (dl <= TRAIN_LOSS_RTOL and dg <= TRAIN_GNORM_RTOL):
+        raise AssertionError(
+            f"granite train step 1: loss {log_[0]['loss']} / grad norm "
+            f"{log_[0]['grad_norm']} against the plain-attention twin's "
+            f"{loss} / {gnorm}: relative {dl:.3g} / {dg:.3g} beyond "
+            f"{TRAIN_LOSS_RTOL} / {TRAIN_GNORM_RTOL}")
+    for e in log_:
+        log(f"train granite-3-2b step {e['step']}: loss {e['loss']:.6f}, "
+            f"lr {e['lr']:.3e}, grad norm {e['grad_norm']:.6f}, "
+            f"{e['s_per_step']:.6f} s/step, {e['tokens_per_s']:.1f} "
+            f"tokens/s, peak allocated {e['peak_gib']:.2f} GiB")
+    log(f"train granite-3-2b: {launches} flash_attention launches "
+        f"({launches // TRAIN_STEPS} a step); step 1 against the "
+        f"plain-attention twin: loss {dl:.3g}, grad norm {dg:.3g} "
+        f"relative (<= {TRAIN_LOSS_RTOL}, {TRAIN_GNORM_RTOL})")
+    return {"log": log_, "launches": launches, "twin": (loss, gnorm)}
+
+
+def train_manual_dp(device) -> dict:
+    """Phase T4: the manual-DP step on granite-3-2b at full width, cut to
+    ``DP_LAYERS`` layers, over ``DP_RANKS`` logical ranks of 1 x
+    ``DP_SEQ`` tokens each: for each of fused, bucketed and sentinel, two
+    steps from the same state (the second timed), every rank's parameters
+    and fp32 masters bitwise equal after each; step 1 of the modes
+    agreeing within the scaled reference bounds; sentinel's token waits
+    counted (none for the others)."""
+    import torch
+    from repro_torch import configs, optim
+    from repro_torch.core.overlap import tree_flatten
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.sharding import ShardingPolicy
+    cfg = configs.get("granite-3-2b").scaled(n_layers=DP_LAYERS)
+    opt_cfg = optim.OptimConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    mesh = make_mesh((DP_RANKS, 1), ("data", "model"), device)
+    data = SyntheticLMData(cfg, batch=DP_RANKS, seq=DP_SEQ, seed=0)
+    out, first = {}, {}
+    for mode in ("fused", "bucketed", "sentinel"):
+        policy = ShardingPolicy(fsdp=False, tp=False, sp=False, remat=None,
+                                grad_sync=mode)
+        state = steps.init_train_state(cfg, opt_cfg, 0, device=device)
+        step = steps.build_train_step_manual(cfg, mesh, policy,
+                                             opt_cfg)(None, None)
+        times = []
+        for k in range(2):
+            batch = to_device(data.batch_at(k), device)
+            mesh.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            reps = step.replicas()
+            trees = [tree_flatten((model.param_tree(r.params),
+                                   r.opt.master))[0] for r in reps]
+            for r, tree in enumerate(trees[1:], 1):
+                if not all(torch.equal(a, b) for a, b in zip(trees[0],
+                                                             tree)):
+                    raise AssertionError(f"manual DP {mode} step {k + 1}: "
+                                         f"rank {r} differs from rank 0")
+            waits = list(mesh.token_waits)
+            if (mode == "sentinel") != (min(waits) > 0) or \
+                    len(set(waits)) != 1:
+                raise AssertionError(f"manual DP {mode}: token waits "
+                                     f"{waits}")
+            if k == 0:
+                first[mode] = (float(m["loss"]), float(m["grad_norm"]),
+                               [t.detach().cpu() for t in trees[0][
+                                   :len(trees[0]) // 2]])
+        del reps, trees
+        out[mode] = {"s_per_step": times[1], "first_s": times[0],
+                     "token_waits": waits[0], "loss": first[mode][0],
+                     "grad_norm": first[mode][1]}
+        log(f"manual DP {mode}: {DP_RANKS} ranks bitwise equal after each "
+            f"of 2 steps; step 1 loss {first[mode][0]:.6f}, grad norm "
+            f"{first[mode][1]:.6f}; {times[1]:.6f} s/step (step 1 with the "
+            f"replicas' copies {times[0]:.6f} s); {waits[0]} token waits "
+            f"a rank")
+        del state, step, m, batch
+        torch.cuda.empty_cache()
+    base = first["fused"]
+    for mode in ("bucketed", "sentinel"):
+        loss, gnorm, params = first[mode]
+        if abs(loss - base[0]) >= DP_LOSS_ATOL or \
+                abs(gnorm - base[1]) >= DP_GNORM_ATOL:
+            raise AssertionError(f"manual DP {mode}: loss {loss} / grad "
+                                 f"norm {gnorm} against fused's {base[:2]}")
+        for a, b in zip(base[2], params):
+            if not torch.allclose(a.float(), b.float(), atol=DP_PARAM_ATOL,
+                                  rtol=DP_PARAM_RTOL):
+                raise AssertionError(f"manual DP {mode}: parameters beyond "
+                                     f"atol {DP_PARAM_ATOL}, rtol "
+                                     f"{DP_PARAM_RTOL} of fused's")
+        same = all(torch.equal(a, b) for a, b in zip(base[2], params))
+        log(f"manual DP {mode} against fused after step 1: loss and grad "
+            f"norm within {DP_LOSS_ATOL} / {DP_GNORM_ATOL}, parameters "
+            f"within atol {DP_PARAM_ATOL} rtol {DP_PARAM_RTOL}"
+            f"{' (bitwise equal)' if same else ''}")
+    return out
+
+
+def train_restart(device, tmp: str) -> None:
+    """Phase T5: smoke granite through ``launch.train`` on the card, 6
+    steps with asynchronous checkpoints (every 3 steps and at the end),
+    then a second run to 12 steps that restores step 6 and continues; its
+    step-12 checkpoint is bitwise equal to an uninterrupted 12-step run's
+    (tests/test_system.py's restart determinism)."""
+    import os
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import train
+    a, b = os.path.join(tmp, "restart"), os.path.join(tmp, "straight")
+
+    def run(steps, d):
+        return train.run(["--arch", "granite-3-2b", "--scale", "smoke",
+                          "--steps", str(steps), "--batch", "4", "--seq",
+                          "64", "--ckpt-dir", d, "--ckpt-every", "3",
+                          "--log-every", "3", "--device", str(device)])
+
+    run(6, a)
+    if ckpt.latest_step(a) != 6:
+        raise AssertionError(f"restart: latest checkpoint "
+                             f"{ckpt.latest_step(a)} after 6 steps")
+    resumed = run(12, a)
+    run(12, b)
+    if resumed["steps"] != 6:
+        raise AssertionError(f"restart: the second run took "
+                             f"{resumed['steps']} steps (6 expected)")
+    d1, d2 = (os.path.join(d, "step_0000000012") for d in (a, b))
+    names = sorted(os.listdir(d1))
+    if names != sorted(os.listdir(d2)):
+        raise AssertionError("restart: checkpoints hold different files")
+    for n in names:
+        if n.endswith(".npy") and not np.array_equal(
+                np.load(os.path.join(d1, n)), np.load(os.path.join(d2, n))):
+            raise AssertionError(f"restart: leaf {n} differs from the "
+                                 f"uninterrupted run's")
+    log(f"train restart: 6 steps, restore at step 6, 6 more: the step-12 "
+        f"checkpoint ({len(names) - 1} leaves) bitwise equal to an "
+        f"uninterrupted 12-step run's")
+
+
 def freed(arch: str, before: int) -> None:
     """Fail unless the memory a served model held is free again: within 1
     GiB of what was allocated before it was built, with no collection by
@@ -2497,6 +2894,20 @@ def main() -> int:
     freed("olmoe-1b-7b", before)
     gmm_t = time_moe_gmm(mg, ref, device)
     flash_t.update(time_flash_attention(fa, ref, device, (OLMOE_PREFILL,)))
+
+    t_train = time.perf_counter()
+    lse_err = check_flash_lse(fa, ref, device)
+    grads = check_attention_grads(fa, ref, device)
+    flash_t.update(time_flash_attention(fa, ref, device, (GRANITE_TRAIN,)))
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    trained = train_granite(fa, device)
+    freed("granite-3-2b train", before)
+    dp = train_manual_dp(device)
+    freed("granite-3-2b manual DP", before)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_restart(device, tmp)
+    log(f"training phases T1-T5: {time.perf_counter() - t_train:.1f} s")
     for version, v in ifs.items():
         log(f"wall IFSKer O1280 {version}: {v['s_per_step']:.6f} s/step, "
             f"peak allocated {v['peak_gib']:.2f} GiB")
@@ -2510,6 +2921,16 @@ def main() -> int:
                 f"{v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms, wall "
                 f"{v['wall_s']:.3f} s, peak allocated {v['peak_gib']:.2f} "
                 f"GiB")
+    for e in trained["log"]:
+        log(f"train granite-3-2b step {e['step']}: {e['s_per_step']:.6f} "
+            f"s/step, {e['tokens_per_s']:.1f} tokens/s, peak allocated "
+            f"{e['peak_gib']:.2f} GiB")
+    for mode, v in dp.items():
+        log(f"train manual DP {mode}: {v['s_per_step']:.6f} s/step, "
+            f"{v['token_waits']} token waits a rank")
+    log(f"attention backward (plain) at {GRANITE_TRAIN}: "
+        f"{grads['bwd_ms']:.3f} ms; kernel forward with lse "
+        f"{grads['fwd_lse_ms']:.4f} ms, without {grads['fwd_ms']:.4f} ms")
 
     kernels = [{
         "name": "gs_stencil", "route": "cuda",
@@ -2533,9 +2954,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:98",
         "launches": sum(run["launches"]["flash_attention"]
-                        for run in (serve, zserve, oserve)),
-        "max_abs_err": flash_err, **flash_t[GRANITE_PREFILL],
-        "design": "wgmma+tma"})
+                        for run in (serve, zserve, oserve))
+        + trained["launches"],
+        "train_launches": trained["launches"],
+        "max_abs_err": flash_err, "lse_rel_err": lse_err,
+        **flash_t[GRANITE_PREFILL], "design": "wgmma+tma"})
     kernels.append({
         "name": "mamba2_ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",

@@ -7,7 +7,10 @@ package restores in the other bitwise:
 * **Format** — ``<base>/step_%010d/`` holds ``manifest.json`` (the step
   and, per leaf, its ``/``-joined tree path, file, shape and dtype name)
   and one ``.npy`` per leaf, numbered in tree order (dict keys sorted,
-  sequences by index — the order ``jax.tree_util`` flattens them in).
+  sequences by index, named tuples by field — the order ``jax.tree_util``
+  flattens them in; a named tuple's field is ``.name`` in a path, as jax
+  prints its attribute keys, so a train state's paths are
+  ``.params/...`` and ``.opt/.m/...`` in both packages).
   ``bfloat16`` leaves are stored as their ``uint16`` bit patterns.  Every
   leaf is written whole, so a checkpoint restores onto any decomposition
   (the elastic legs re-shape a shrunken world over it).  A checkpoint is
@@ -50,18 +53,23 @@ def _is_node(tree) -> bool:
     return isinstance(tree, (dict, list, tuple))
 
 
+def _items(tree) -> List[Tuple[Any, Any]]:
+    """(path key, child) of a dict, named tuple or sequence, in order."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if hasattr(tree, "_fields"):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    return list(enumerate(tree))
+
+
 def _paths_and_leaves(tree, prefix: Tuple = ()) -> List[Tuple[str, Any]]:
     """``(path, leaf)`` in tree order; ``None`` is an empty subtree."""
     if tree is None:
         return []
-    if isinstance(tree, dict):
-        items = [(k, tree[k]) for k in sorted(tree)]
-    elif isinstance(tree, (list, tuple)):
-        items = list(enumerate(tree))
-    else:
+    if not _is_node(tree):
         return [("/".join(str(p) for p in prefix), tree)]
     out = []
-    for k, sub in items:
+    for k, sub in _items(tree):
         out.extend(_paths_and_leaves(sub, prefix + (k,)))
     return out
 
@@ -73,8 +81,9 @@ def _map_leaves(fn, tree, prefix: Tuple = ()):
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, tree[k], prefix + (k,)) for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_leaves(fn, v, prefix + (i,))
-                          for i, v in enumerate(tree))
+        kids = [_map_leaves(fn, v, prefix + (k,)) for k, v in _items(tree)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") \
+            else type(tree)(kids)
     return fn("/".join(str(p) for p in prefix), tree)
 
 

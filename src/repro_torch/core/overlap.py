@@ -54,35 +54,37 @@ __all__ = ["sync_grads", "quantized_psum_mean", "halo_exchange_rows",
 # ---------------------------------------------------------------------------
 # Trees in jax.tree_util's leaf order
 # ---------------------------------------------------------------------------
+def _flatten_into(t, leaves: List[Any]):
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return (dict, tuple(keys),
+                tuple(_flatten_into(t[k], leaves) for k in keys))
+    if isinstance(t, (list, tuple)):
+        return (type(t), None, tuple(_flatten_into(c, leaves) for c in t))
+    leaves.append(t)
+    return None
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """Leaves in ``jax.tree_util`` order (dict keys sorted, recursively;
-    lists and tuples in order) and a structure for :func:`tree_unflatten`."""
+    lists and tuples in order) and a structure for :func:`tree_unflatten`.
+    (Module-level recursion: a recursive closure would be a reference
+    cycle holding the leaves until the cyclic collector ran.)"""
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def walk(t):
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return (dict, tuple(keys), tuple(walk(t[k]) for k in keys))
-        if isinstance(t, (list, tuple)):
-            return (type(t), None, tuple(walk(c) for c in t))
-        leaves.append(t)
-        return None
 
-    return leaves, walk(tree)
+def _build(d, it):
+    if d is None:
+        return next(it)
+    kind, keys, kids = d
+    if kind is dict:
+        return {k: _build(c, it) for k, c in zip(keys, kids)}
+    return kind(_build(c, it) for c in kids)
 
 
 def tree_unflatten(treedef, leaves: Sequence[Any]):
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        kind, keys, kids = d
-        if kind is dict:
-            return {k: build(c) for k, c in zip(keys, kids)}
-        return kind(build(c) for c in kids)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def _make_buckets(nbytes: Sequence[int],

@@ -51,9 +51,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "dequantize_wire": ((_P, _P, _P, _L, _I, _P), _I),
     },
     "flash_attention": {
-        # (q, k, v, out, B, S, T, H, Hkv, D, causal, window or -1, dtype,
-        #  stream)
-        "flash_attention_fwd": ((_P,) * 4 + (_I,) * 9 + (_P,), _I),
+        # (q, k, v, out, lse or null, B, S, T, H, Hkv, D, causal, window or
+        #  -1, dtype, stream)
+        "flash_attention_fwd": ((_P,) * 5 + (_I,) * 9 + (_P,), _I),
     },
     "mamba2_ssd": {
         # (x, dt, A, B, C, init or NULL, y, final state, b, s, h, p, n,

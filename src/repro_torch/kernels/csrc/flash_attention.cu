@@ -11,6 +11,12 @@
 // alpha = 0 where m is still NEG_INF, else exp(m - m_new); l = l * alpha +
 // sum p; acc = acc * alpha + p . v.  At the end l == 0 becomes 1 and
 // acc / l is stored in the input dtype -- what `_attn_kernel` computes.
+// Given a non-null `lse`, each row's log-sum-exp m + log(l) (m the row's
+// running max of the scaled scores, the same l == 0 -> 1) is stored too,
+// fp32 (B, H, S), what the reference's `_attn_fwd_impl` returns for its
+// backward (src/repro/kernels/ref.py); a row with no visible key keeps m =
+// NEG_INF there.  A null `lse` stores nothing more, so prefill does the
+// same work as without it.
 //
 // Bound on an H100 SXM: operations.  granite-3-2b's prefill call (S = T =
 // 2048, 32 heads over 8 kv heads, D = 64, causal) does 2 * 2 * S^2 * D * H
@@ -152,9 +158,10 @@ constexpr int smem_floats(int D) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
-                       int Tk, int H, int Hkv, int hpb, int ppb,
-                       int n_hchunks, int causal, int window, float scale) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int S, int Tk, int H,
+                       int Hkv, int hpb, int ppb, int n_hchunks, int causal,
+                       int window, float scale) {
   constexpr int DC = D / 16;    // output columns per thread
   extern __shared__ float4 smem_raw[];
   float* Qt = reinterpret_cast<float*>(smem_raw);   // [D][kRowStride]
@@ -297,12 +304,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* dst = o + ((long long)(b * S + pos[i]) * H + h0 + r % hpb) * D + d0;
 #pragma unroll
     for (int j = 0; j < DC; ++j) store(dst + j, acc[i][j] / li);
+    if (lse != nullptr && cg == 0)    // the 16 threads of a row agree
+      lse[(long long)(b * H + h0 + r % hpb) * S + pos[i]] = m[i] + logf(li);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Tk, int H, int Hkv, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Tk, int H, int Hkv, int causal, int window,
            cudaStream_t stream) {
   const int rep = H / Hkv;
   int hpb = 1;                  // the largest divisor of rep up to kRows
@@ -318,8 +327,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((S + ppb - 1) / ppb, B * Hkv * n_hchunks);
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tk, H, Hkv, hpb, ppb,
-      n_hchunks, causal, window, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Tk, H, Hkv, hpb,
+      ppb, n_hchunks, causal, window, 1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
@@ -398,10 +407,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
-                            __nv_bfloat16* __restrict__ o, int S, int Tk,
-                            int H, int Hkv, int hpb, int ppb, int n_hchunks,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int S, int Tk, int H,
+                            int Hkv, int hpb, int ppb, int n_hchunks,
                             int n_groups, int n_ptiles, int causal,
-                            int window, float scale_log2) {
+                            int window, float scale, float scale_log2) {
   using C = Tile<D>;
   constexpr int BK = C::kBK;
   extern __shared__ uint8_t smem_tc[];
@@ -618,9 +628,12 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int h = 0; h < 2; ++h) {
         if (pos[h] < 0) continue;
         const float li = l[h] == 0.0f ? 1.0f : l[h];
+        const int head = it.h0 + (r0 + 8 * h) % hpb;
+        if (lse != nullptr && quad == 0)    // m is in raw scores here
+          lse[(long long)(it.b * H + head) * S + pos[h]] =
+              m[h] == kNegInf ? kNegInf : fmaf(m[h], scale, logf(li));
         __nv_bfloat16* dst =
-            o + ((long long)(it.b * S + pos[h]) * H + it.h0 +
-                 (r0 + 8 * h) % hpb) * D + 2 * quad;
+            o + ((long long)(it.b * S + pos[h]) * H + head) * D + 2 * quad;
 #pragma unroll
         for (int c = 0; c < D / 8; ++c)
           *reinterpret_cast<__nv_bfloat162*>(dst + 8 * c) =
@@ -631,14 +644,26 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// lse[i] = NEG_INF for i < n: the rows of a call with no key.
+__global__ void fill_neg_inf(float* __restrict__ lse, long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) lse[i] = kNegInf;
+}
+
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Tk, int H, int Hkv, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Tk, int H, int Hkv, int causal, int window,
            cudaStream_t stream) {
   using C = Tile<D>;
-  if (Tk <= 0)                  // no key: every row's l is 0, o = 0
-    return cudaMemsetAsync(o, 0, sizeof(__nv_bfloat16) * B * S * H * D,
-                           stream);
+  if (Tk <= 0) {                // no key: every row's l is 0, o = 0
+    const long long rows = (long long)B * H * S;
+    if (lse != nullptr) {
+      fill_neg_inf<<<(rows + 255) / 256, 256, 0, stream>>>(lse, rows);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    return cudaMemsetAsync(o, 0, sizeof(__nv_bfloat16) * rows * D, stream);
+  }
   const int rep = H / Hkv;
   int hpb = 1;                  // the largest divisor of rep up to kRows
   for (int c = 1; c <= rep && c <= kRows; ++c)
@@ -678,8 +703,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int n_items = n_groups * n_ptiles;
   const int G = n_items < n_sm ? n_items : n_sm;
   flash_attention_bf16_kernel<D><<<G, kThreads, C::kSmem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, Tk, H, Hkv, hpb, ppb,
-      n_hchunks, n_groups, n_ptiles, causal, window,
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, S, Tk, H, Hkv, hpb,
+      ppb, n_hchunks, n_groups, n_ptiles, causal, window,
+      static_cast<float>(1.0 / sqrt(static_cast<double>(D))),
       static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
@@ -703,10 +729,11 @@ int with_head_dim(int D, F&& f) {
 
 extern "C" {
 
-// window < 0: no sliding window.
+// window < 0: no sliding window.  lse: fp32 (B, H, S), or null for none.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int Tk, int H, int Hkv, int D,
-                        int causal, int window, int dtype, void* stream) {
+                        void* lse, int B, int S, int Tk, int H, int Hkv,
+                        int D, int causal, int window, int dtype,
+                        void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -714,12 +741,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case kF32:
       return with_head_dim(D, [&](auto d) {
         return f32::launch<float, decltype(d)::value>(
-            q, k, v, o, B, S, Tk, H, Hkv, causal, window, s);
+            q, k, v, o, static_cast<float*>(lse), B, S, Tk, H, Hkv, causal,
+            window, s);
       });
     case kBF16:
       return with_head_dim(D, [&](auto d) {
-        return bf16::launch<decltype(d)::value>(q, k, v, o, B, S, Tk, H, Hkv,
-                                              causal, window, s);
+        return bf16::launch<decltype(d)::value>(
+            q, k, v, o, static_cast<float*>(lse), B, S, Tk, H, Hkv, causal,
+            window, s);
       });
     default:
       return cudaErrorInvalidValue;

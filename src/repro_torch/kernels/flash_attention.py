@@ -10,13 +10,17 @@ the kernel's launches (plain-version calls count nothing).
 Unlike the Pallas wrapper, any S and T are taken: ``S % block_q == 0`` is
 a TPU tiling limit, and the kernel masks its ragged tiles.  bf16 runs on
 the tensor cores (``wgmma``, with q, k and v loaded by TMA, so each must
-start on a 16-byte boundary); fp32 on the FMA pipes.
+start on a 16-byte boundary); fp32 on the FMA pipes.  With
+``return_lse=True`` the kernel also writes each query row's log-sum-exp,
+what the attention backward (``ref.attention_bwd``) recomputes the
+probabilities from; without it the kernel is given a null pointer and does
+the forward's work alone.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -67,33 +71,42 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Tiled online-softmax attention, forward only.
+                    causal: bool = True, window: Optional[int] = None,
+                    return_lse: bool = False
+                    ) -> Union[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """Tiled online-softmax attention, forward.
 
     q: (B, S, H, D); k, v: (B, T, Hkv, D) with H % Hkv == 0, float32 or
     bfloat16.  Query head h attends kv head ``h // (H // Hkv)``; ``causal``
     masks keys after the query's position, ``window`` keys at or before
     ``position - window``.  Scores and accumulation in fp32; the result
-    has q's shape and dtype.
+    has q's shape and dtype.  ``return_lse``: also each row's
+    log-sum-exp ``m + log(l)`` of the scaled scores, fp32 (B, H, S), with
+    the reference's convention for a row with no visible key (l = 1, m =
+    ``NEG_INF``); returns ``(out, lse)``.
     """
     _check_args(q, k, v)
     if not q.is_cuda:
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=return_lse)
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = build.load("flash_attention")
     err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H,
-        Hkv, D, int(causal), -1 if window is None else int(window),
-        _CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, S, T, H, Hkv, D,
+        int(causal), -1 if window is None else int(window), _CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     with _count_lock:
         flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

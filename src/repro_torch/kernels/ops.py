@@ -11,6 +11,15 @@ kernel wrapper would refuse (a non-contiguous view, or a misaligned one
 where the wrapper reads 16-byte vectors) is copied to a fresh contiguous
 tensor first (:func:`_as_kernel_input`); every other input reaches the
 wrapper as it is, so no call's route changes and nothing falls back.
+
+Gradients: ``flash_attention`` is an autograd function when an input
+requires grad (the kernel's forward, which also writes the log-sum-exp,
+and the reference's plain flash backward, ``ref.attention_bwd``).
+``mamba2_ssd``, ``mlstm_chunked`` and ``moe_gmm`` have kernels with no
+backward: given a CUDA input that requires grad while grad is enabled they
+raise ``NotImplementedError`` rather than return an output that autograd
+cannot see through.  On the CPU their plain versions differentiate through
+autograd, as the reference's jnp does.
 """
 
 from __future__ import annotations
@@ -35,6 +44,28 @@ def _check_impl(name: str, impl: Optional[str]) -> None:
                          f"got {impl!r}")
 
 
+def _launches_kernel(t: torch.Tensor) -> bool:
+    """Whether a kernel entry point given ``t`` launches its kernel: ``t``
+    lies on the card (a CPU tensor takes the plain version)."""
+    return t.is_cuda
+
+
+def _needs_grad(*ts: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _refuse_grad(name: str, *ts: Optional[torch.Tensor]) -> None:
+    """Raise when a kernel with no backward would be asked for a gradient:
+    its output would carry no ``grad_fn`` and the gradient would be silently
+    wrong."""
+    if _needs_grad(*ts):
+        raise NotImplementedError(
+            f"{name}: the kernel has no backward, and an input requires "
+            f"grad; train this block on the CPU (the plain version "
+            f"differentiates) or run it under torch.no_grad()")
+
+
 def _as_kernel_input(t: Optional[torch.Tensor], *,
                      aligned: bool = False) -> Optional[torch.Tensor]:
     """``t`` itself when a kernel wrapper takes it as it is: contiguous
@@ -50,19 +81,55 @@ def _as_kernel_input(t: Optional[torch.Tensor], *,
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None,
-                    impl: Optional[str] = None) -> torch.Tensor:
-    """Prefill attention: q (B, S, H, D), k/v (B, T, Hkv, D).  The Hopper
-    kernel for CUDA tensors (its plain version on the CPU), or with
-    ``impl="ref"`` the plain key-tile loop on any device."""
-    _check_impl("flash_attention", impl)
-    if impl == "ref":
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
+def _flash_forward(q, k, v, causal, window, return_lse=False):
     if q.is_cuda:       # the bf16 kernel loads q, k, v by TMA
         aligned = q.dtype == torch.bfloat16
         q, k, v = (_as_kernel_input(t, aligned=aligned) for t in (q, k, v))
-    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=return_lse)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward with its log-sum-exp (the plain version's on
+    the CPU) and the reference's plain flash backward on every device;
+    only (q, k, v, out, lse) are saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _flash_forward(q, k, v, causal, window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        causal, window = ctx.args
+        grads = ref.attention_bwd(*ctx.saved_tensors, dout, causal=causal,
+                                  window=window)
+        return grads + (None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """Prefill and training attention: q (B, S, H, D), k/v (B, T, Hkv,
+    D).  The Hopper kernel for CUDA tensors (its plain version on the CPU),
+    or with ``impl="ref"`` the plain key-tile loop on any device.  When an
+    input requires grad (and grad is enabled) the call is differentiable:
+    the kernel's forward writes the log-sum-exp too, and the backward is
+    ``ref.attention_bwd``; with ``impl="ref"`` both directions are plain
+    (``ref.attention_chunked``, the reference's ``impl="ref"`` route)."""
+    _check_impl("flash_attention", impl)
+    grad = _needs_grad(q, k, v)
+    if impl == "ref":
+        if grad:
+            return ref.attention_chunked(q, k, v, causal=causal,
+                                         window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    if grad:
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _flash_forward(q, k, v, causal, window)
 
 
 # Plain torch with no hand kernel, as in the JAX package: the decode path.
@@ -84,6 +151,8 @@ def mamba2_ssd(x, dt, A, B, C, *, chunk: int = 128, init_state=None,
     the plain ``ref.ssd_chunked`` on any device.  Returns (y, final state
     fp32)."""
     _check_impl("mamba2_ssd", impl)
+    if impl != "ref" and _launches_kernel(x):
+        _refuse_grad("mamba2_ssd", x, dt, A, B, C, init_state)
     s = x.shape[1]
     chunk = min(chunk, s) if s % chunk else chunk
     pad = (-s) % chunk
@@ -124,6 +193,8 @@ def mlstm_chunked(q, k, v, i_gate, f_gate, *, chunk: int, init=None,
     routes it (its Pallas kernel has no initial state either).  Returns
     (y, (C, n, m) fp32)."""
     _check_impl("mlstm_chunked", impl)
+    if impl != "ref" and init is None and _launches_kernel(q):
+        _refuse_grad("mlstm_chunk", q, k, v, i_gate, f_gate)
     s = q.shape[1]
     chunk = min(chunk, s) if s % chunk else chunk
     pad = (-s) % chunk
@@ -159,6 +230,8 @@ def moe_gmm(x, w, *, impl: Optional[str] = None) -> torch.Tensor:
     _check_impl("moe_gmm", impl)
     if impl == "ref":
         return ref.moe_gmm(x, w)
+    if _launches_kernel(x):
+        _refuse_grad("moe_gmm", x, w)
     if x.is_cuda:       # a misaligned bf16 x or w takes the mma_sync route
         x, w = _as_kernel_input(x), _as_kernel_input(w)
     return _gmm.moe_gmm(x, w)

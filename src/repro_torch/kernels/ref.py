@@ -7,11 +7,13 @@ package with, and the version ``chip_smoke.py`` compares each kernel to on
 the card.  Counterpart of the collective-stage oracles in
 ``repro/kernels/ref.py`` (``combine_stage``, ``quantize_stage``,
 ``dequantize_stage`` and ``gs_stencil``), of the attention oracles
-(``attention``, the dense oracle and decode path, and ``flash_attention``,
-the plain version of the attention kernel), and of the Mamba2 SSD ones
-(``ssd_chunked``, the plain version of the ``mamba2_ssd`` kernel;
-``ssd_sequential``, the stepwise oracle; ``ssd_decode_step``, the decode
-path), and of the mLSTM ones (``mlstm_chunked``, the plain version of the
+(``attention``, the dense oracle and decode path, ``flash_attention``,
+the plain version of the attention kernel, and ``attention_fwd`` /
+``attention_bwd`` / ``attention_chunked``, the reference's chunked
+attention and its custom VJP, the training path's backward), and of the
+Mamba2 SSD ones (``ssd_chunked``, the plain version of the ``mamba2_ssd``
+kernel; ``ssd_sequential``, the stepwise oracle; ``ssd_decode_step``, the
+decode path), and of the mLSTM ones (``mlstm_chunked``, the plain version of the
 ``mlstm_chunk`` kernel; ``mlstm_sequential``, the stepwise oracle;
 ``mlstm_decode_step``, the decode path), and of the MoE ones (``moe_gmm``,
 the plain version of the ``moe_gmm`` kernel; ``gmm``, the ragged oracle).
@@ -141,8 +143,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    return_lse: bool = False):
     """The plain version of the ``flash_attention`` kernel: a loop over key
     tiles of ``_PLAIN_BLOCK_K`` with the online softmax of the Pallas kernel's
     ``_attn_kernel`` (``repro/kernels/flash_attention.py``), all query rows
@@ -153,6 +155,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``alpha = 0`` where the previous max is still ``NEG_INF``; at the end
     ``l == 0`` becomes 1 and ``acc / l`` is cast to q's dtype.  Any S and
     T: the last tile is ragged.  q: (B, S, H, D); k, v: (B, T, Hkv, D).
+    ``return_lse``: also ``m + log(l)`` per row, fp32 (B, H, S), as the
+    kernel writes it; returns ``(out, lse)``.
     """
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -190,8 +194,154 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     l = torch.where(l == 0.0, torch.ones((), device=dev), l)
     out = (acc / l[..., None]).to(q.dtype)
-    return out.reshape(B, Hkv, rep, S, D).permute(0, 3, 1, 2, 4) \
+    out = out.reshape(B, Hkv, rep, S, D).permute(0, 3, 1, 2, 4) \
         .reshape(B, S, H, D)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).reshape(B, H, S)
+
+
+# The reference's key-chunk width for the chunked attention and its backward
+# (``repro/kernels/ref.py`` ``attention_chunked``).
+ATTN_CHUNK = 512
+
+
+def _chunk_mask(k0: int, k1: int, S: int, causal: bool,
+                window: Optional[int], q_offset: int,
+                device) -> torch.Tensor:
+    """(S, k1 - k0) mask of the keys [k0, k1) each query row sees."""
+    q_pos = q_offset + torch.arange(S, device=device)[:, None]
+    k_pos = torch.arange(k0, k1, device=device)[None, :]
+    mask = torch.ones((S, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def _kv_chunks(k: torch.Tensor, v: torch.Tensor, chunk: int, rep: int):
+    """(k0, k1, k chunk, v chunk) in fp32, each kv head repeated ``rep``
+    times along the head axis (``jnp.repeat``), chunk by chunk."""
+    T = k.shape[1]
+    for k0 in range(0, T, chunk):
+        k1 = min(k0 + chunk, T)
+        kb, vb = k[:, k0:k1].float(), v[:, k0:k1].float()
+        if rep > 1:
+            kb = kb.repeat_interleave(rep, dim=2)
+            vb = vb.repeat_interleave(rep, dim=2)
+        yield k0, k1, kb, vb
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  chunk: int = ATTN_CHUNK, q_offset: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked online-softmax forward of the reference's custom-VJP
+    attention (``repro/kernels/ref.py`` ``_attn_fwd_impl``): a loop over
+    key chunks of ``min(chunk, T)`` with fp32 running max ``m``, sum ``l``
+    and accumulator.  Returns ``(out, lse)``: out in q's dtype, lse = m +
+    log(l) fp32 (B, H, S), with ``l == 0`` taken as 1 (a row with no
+    visible key keeps m = ``NEG_INF``).  The reference pads T to a
+    multiple of the chunk and masks the padding; here the last chunk is
+    short, which masks the same keys."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    rep = H // Hkv
+    chunk = min(chunk, k.shape[1])
+    qf = q.float()
+    scale = 1.0 / (D ** 0.5)
+    dev = q.device
+    zero = torch.zeros((), device=dev)
+    m = torch.full((B, H, S), NEG_INF, device=dev)
+    l = torch.zeros((B, H, S), device=dev)
+    acc = torch.zeros((B, H, S, D), device=dev)
+    for k0, k1, kb, vb in _kv_chunks(k, v, max(chunk, 1), rep):
+        s = torch.einsum("bshd,bthd->bhst", qf, kb) * scale
+        mask = _chunk_mask(k0, k1, S, causal, window, q_offset, dev)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), zero)
+        alpha = torch.where(m == NEG_INF, zero, torch.exp(m - m_new))
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhst,bthd->bhsd", p, vb)
+        m = m_new
+    lsafe = torch.where(l == 0.0, torch.ones((), device=dev), l)
+    out = acc / lsafe[..., None]
+    return out.movedim(1, 2).to(q.dtype), m + torch.log(lsafe)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  chunk: int = ATTN_CHUNK, q_offset: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward of the reference's custom-VJP attention
+    (``repro/kernels/ref.py`` ``_attn_vjp_bwd``): each key chunk's
+    probabilities are recomputed from ``lse`` (fp32 (B, H, S)), with
+    ``delta = sum_d dout * out`` for the softmax Jacobian's diagonal term;
+    the GQA heads' dk and dv are summed back onto their kv head.  Every
+    product in fp32; returns ``(dq, dk, dv)`` in q's, k's and v's dtypes.
+    Plain torch on every device: the reference's backward is jnp, not a
+    Pallas kernel."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    chunk = min(chunk, T)
+    qf, do, of = q.float(), dout.float(), out.float()
+    scale = 1.0 / (D ** 0.5)
+    dev = q.device
+    zero = torch.zeros((), device=dev)
+    delta = torch.einsum("bshd,bshd->bhs", do, of)
+    dq = torch.zeros((B, S, H, D), device=dev)
+    dk = torch.empty((B, T, Hkv, D), device=dev)
+    dv = torch.empty((B, T, Hkv, D), device=dev)
+    for k0, k1, kb, vb in _kv_chunks(k, v, max(chunk, 1), rep):
+        s = torch.einsum("bshd,bthd->bhst", qf, kb) * scale
+        mask = _chunk_mask(k0, k1, S, causal, window, q_offset, dev)
+        p = torch.where(mask, torch.exp(s - lse[..., None]), zero)
+        dv_c = torch.einsum("bhst,bshd->bthd", p, do)
+        dp = torch.einsum("bshd,bthd->bhst", do, vb)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bhst,bthd->bshd", ds, kb)
+        dk_c = torch.einsum("bhst,bshd->bthd", ds, qf)
+        if rep > 1:
+            dk_c = dk_c.reshape(B, k1 - k0, Hkv, rep, D).sum(3)
+            dv_c = dv_c.reshape(B, k1 - k0, Hkv, rep, D).sum(3)
+        dk[:, k0:k1] = dk_c
+        dv[:, k0:k1] = dv_c
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _AttentionChunked(torch.autograd.Function):
+    """:func:`attention_fwd` with :func:`attention_bwd` as its backward:
+    only (q, k, v, out, lse) are saved, as in the reference's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk):
+        out, lse = attention_fwd(q, k, v, causal=causal, window=window,
+                                 chunk=chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, chunk)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        causal, window, chunk = ctx.args
+        grads = attention_bwd(*ctx.saved_tensors, dout, causal=causal,
+                              window=window, chunk=chunk)
+        return grads + (None, None, None)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      chunk: int = ATTN_CHUNK) -> torch.Tensor:
+    """Flash-style attention in plain torch with a flash-style backward:
+    the port of the reference's ``attention_chunked`` and its custom VJP
+    (an autograd function over :func:`attention_fwd` and
+    :func:`attention_bwd`)."""
+    return _AttentionChunked.apply(q, k, v, causal, window, chunk)
 
 
 # ---------------------------------------------------------------------------

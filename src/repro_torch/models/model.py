@@ -23,6 +23,18 @@ summed over the model, 0 without MoE):
   position only (what ``runtime/steps.py``'s prefill step returns);
 * ``decode``  — one token against the fixed-size cache at ``cache_index``.
 
+Training (``runtime/steps.py``) differentiates ``train`` mode through
+autograd: the parameters are created with ``requires_grad=False`` (serving
+runs under ``torch.inference_mode``) and the train state turns them on.
+``remat`` recomputes each unit's activations in the backward, as the
+reference's ``jax.checkpoint`` of its scan body does: ``"full"`` keeps only
+each unit's input, ``"dots"`` also keeps the outputs of the products with
+a weight (``dots_with_no_batch_dims_saveable``).  :func:`lm_loss` is the
+reference's loss; :func:`param_tree` lays the parameters out as the
+reference's tree with one entry per unit, and :func:`params_to_reference`
+stacks them into its layout (the inverse of
+:func:`params_from_reference`).
+
 The cache (:func:`init_cache`) is the reference's layout: per attention or
 shared-attention entry, k and v of shape (repeats, B, T, Hkv, dh); per
 Mamba2 block, the SSD ``state`` (repeats, B, H, P, n) fp32 and the
@@ -35,6 +47,7 @@ decode write it in place.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -49,6 +62,33 @@ from .config import (ModelConfig, ATTN, SWA, MLP, MOE, MAMBA2, MLSTM, SLSTM,
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 MODES = ("train", "prefill", "decode")
+REMATS = (None, "full", "dots")
+
+# Products with a weight (x @ w, 2-D or folded to 2-D): what "dots" saves,
+# as jax's dots_with_no_batch_dims_saveable keeps dot_generals without batch
+# dimensions (attention's batched products are recomputed).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_unit(unit, x, remat: Optional[str], **kw):
+    """``unit(x, **kw)``, its activations recomputed in the backward under
+    ``remat`` (``torch.utils.checkpoint``, non-reentrant)."""
+    if remat is None:
+        return unit(x, **kw)
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    extra = {}
+    if remat == "dots":
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(functools.partial(unit, **kw), x, use_reentrant=False,
+                      **extra)
 
 
 def _block_names(cfg: ModelConfig):
@@ -171,11 +211,14 @@ class Model(nn.Module):
                 attn_impl: Optional[str] = None,
                 ssd_impl: Optional[str] = None,
                 mlstm_impl: Optional[str] = None,
-                moe_impl: Optional[str] = None
+                moe_impl: Optional[str] = None,
+                remat: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
         cfg = self.cfg
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         if mode == "decode" and (cache is None or cache_index is None):
             raise ValueError("decode needs a cache and a cache_index")
         if cfg.frontend == "audio":
@@ -202,10 +245,12 @@ class Model(nn.Module):
             unit_cache = None if mode == "train" else {
                 name: {n: t[r] for n, t in c.items()}
                 for name, c in cache.items()}
-            x, a = unit(x, x0=x0, shared=self.shared, angles=angles,
-                        mode=mode, cache=unit_cache, cache_index=cache_index,
-                        attn_impl=attn_impl, ssd_impl=ssd_impl,
-                        mlstm_impl=mlstm_impl, moe_impl=moe_impl)
+            x, a = _run_unit(
+                unit, x, remat if mode == "train" else None, x0=x0,
+                shared=self.shared, angles=angles, mode=mode,
+                cache=unit_cache, cache_index=cache_index,
+                attn_impl=attn_impl, ssd_impl=ssd_impl,
+                mlstm_impl=mlstm_impl, moe_impl=moe_impl)
             aux = aux + a
         if mode == "prefill":
             x = x[:, -1:]
@@ -216,7 +261,8 @@ def apply(model: Model, batch: Mapping[str, torch.Tensor], *,
           mode: str = "train", cache: Optional[Cache] = None,
           cache_index: Optional[int] = None,
           attn_impl: Optional[str] = None, ssd_impl: Optional[str] = None,
-          mlstm_impl: Optional[str] = None, moe_impl: Optional[str] = None
+          mlstm_impl: Optional[str] = None, moe_impl: Optional[str] = None,
+          remat: Optional[str] = None
           ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Forward pass; returns ``(logits, cache, aux)``, ``aux`` the MoE
     load-balancing loss summed over blocks (fp32 scalar).  ``attn_impl``
@@ -226,10 +272,26 @@ def apply(model: Model, batch: Mapping[str, torch.Tensor], *,
     card; "ref": its plain version).  Prefill without a cache
     allocates one of length S; with one, it fills positions [0, S) of it
     and every recurrent block's state (from the zero state, whatever the
-    cache held)."""
+    cache held).  ``remat`` (``None``, ``"full"`` or ``"dots"``) applies
+    in ``train`` mode."""
     return model(batch, mode=mode, cache=cache, cache_index=cache_index,
                  attn_impl=attn_impl, ssd_impl=ssd_impl,
-                 mlstm_impl=mlstm_impl, moe_impl=moe_impl)
+                 mlstm_impl=mlstm_impl, moe_impl=moe_impl, remat=remat)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy in fp32 (``repro/models/model.py``
+    ``lm_loss``): log-sum-exp of the fp32 logits minus the label's logit,
+    averaged over the positions, or over the ``mask``-weighted positions.
+    logits (B, S, V); labels (B, S)."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - torch.gather(
+        lf, -1, labels[..., None].long())[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
@@ -331,19 +393,21 @@ def params_from_reference(cfg: ModelConfig, np_params: Mapping[str, Any], *,
 
     ``np_params`` is the reference's tree (``repro.models.model.init``)
     with numpy leaves (bf16 leaves converted to float32 first: numpy has no
-    bfloat16).  ``params["layers"]`` has a leading ``repeats`` axis, which
-    is unstacked into the units (its ``shared_attn`` entries are empty and
-    skipped); ``params["shared"]`` has none and goes to the one shared
-    block.  Each leaf is cast to the parameter's dtype.
+    bfloat16) or tensor leaves (a restored checkpoint's).
+    ``params["layers"]`` has a leading ``repeats`` axis, which is unstacked
+    into the units (its ``shared_attn`` entries are empty and skipped);
+    ``params["shared"]`` has none and goes to the one shared block.  Each
+    leaf is cast to the parameter's dtype.
     """
     model = Model(cfg, device)
 
     def put(p: torch.Tensor, arr) -> None:
-        arr = np.asarray(arr)
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.tensor(np.asarray(arr))
         if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"reference leaf of shape {arr.shape} for a "
-                             f"parameter of shape {tuple(p.shape)}")
-        p.copy_(torch.tensor(arr).to(p.dtype))
+            raise ValueError(f"reference leaf of shape {tuple(arr.shape)} "
+                             f"for a parameter of shape {tuple(p.shape)}")
+        p.copy_(arr.to(p.dtype))
 
     def put_tree(module: nn.Module, tree: Mapping[str, Any]) -> None:
         for k, v in tree.items():
@@ -366,8 +430,69 @@ def params_from_reference(cfg: ModelConfig, np_params: Mapping[str, Any], *,
                 continue            # a shared_attn entry: no weights
             block = unit.blocks[block_name]
             for k, arr in leaves.items():
-                put(getattr(block, k), np.asarray(arr)[r])
+                put(getattr(block, k), arr[r] if isinstance(
+                    arr, torch.Tensor) else np.asarray(arr)[r])
     return model
+
+
+def _module_tree(module: nn.Module) -> Dict[str, Any]:
+    tree: Dict[str, Any] = dict(module.named_parameters(recurse=False))
+    for name, child in module.named_children():
+        tree[name] = _module_tree(child)
+    return tree
+
+
+def _zip_trees(trees):
+    """Trees of one structure -> one tree with a tuple at each leaf."""
+    if isinstance(trees[0], Mapping):
+        return {k: _zip_trees([t[k] for t in trees]) for k in trees[0]}
+    return tuple(trees)
+
+
+def param_tree(model: Model) -> Dict[str, Any]:
+    """The model's parameters in the reference's tree (``embed``,
+    ``final_norm``, ``layers``, ``lm_head``, ``shared``, as the model has
+    them), with the ``layers`` leaves unstacked: ``tree["layers"][block]
+    [leaf]`` is a tuple of the ``cfg.repeats`` units' parameters, and a
+    ``shared_attn`` entry an empty dict.  The leaves are the parameters
+    themselves, so the tree is what the optimizer updates in place."""
+    tree: Dict[str, Any] = {}
+    if hasattr(model, "embed"):
+        tree["embed"] = model.embed
+    tree["final_norm"] = _module_tree(model.final_norm)
+    if hasattr(model, "lm_head"):
+        tree["lm_head"] = model.lm_head
+    if model.shared is not None:
+        tree["shared"] = _module_tree(model.shared)
+    layers: Dict[str, Any] = {}
+    for name, norm_name, kind in _block_names(model.cfg):
+        if kind == SHARED_ATTN:
+            layers[name] = {}
+            continue
+        for bn in (norm_name, name):
+            layers[bn] = _zip_trees([_module_tree(u.blocks[bn])
+                                     for u in model.units])
+    tree["layers"] = layers
+    return tree
+
+
+def to_reference_layout(tree):
+    """A tree shaped like :func:`param_tree`'s (parameters, or optimizer
+    state beside them) in the reference's layout: every per-unit tuple
+    stacked along a new leading ``repeats`` axis, every tensor detached.
+    The stacked leaves are copies."""
+    if isinstance(tree, Mapping):
+        return {k: to_reference_layout(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return torch.stack([t.detach() for t in tree])
+    return tree.detach()
+
+
+def params_to_reference(model: Model) -> Dict[str, Any]:
+    """The model's parameters as the reference's params tree (tensors, in
+    the parameters' dtypes): the inverse of :func:`params_from_reference`,
+    with the units re-stacked into ``params["layers"]``."""
+    return to_reference_layout(param_tree(model))
 
 
 def param_count(model: nn.Module) -> int:

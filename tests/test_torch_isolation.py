@@ -1,7 +1,7 @@
 """``repro_torch`` stands alone: it imports neither ``jax`` nor anything of
 the JAX package ``repro``, and its entry points default to CUDA and raise
 on a host without it (the Gauss–Seidel and Level-B benches, the serving
-CLI and ``LMAdapter``).  Both checks run in a fresh interpreter."""
+CLI, ``LMAdapter`` and the training CLI).  Both checks run in a fresh interpreter."""
 
 import json
 import os
@@ -63,11 +63,19 @@ try:
     no_device_lm = "ran"
 except RuntimeError as e:
     no_device_lm = "raised: " + str(e)
+from repro_torch.launch import train
+try:
+    train.main(["--scale", "smoke", "--steps", "1", "--batch", "1",
+                "--seq", "8"])
+    no_device_train = "ran"
+except RuntimeError as e:
+    no_device_train = "raised: " + str(e)
 print(json.dumps({"modules": mods, "bad": bad, "cuda": torch.cuda
                   .is_available(), "no_device": no_device,
                   "no_device_sync": no_device_sync,
                   "no_device_serve": no_device_serve,
-                  "no_device_lm": no_device_lm}))
+                  "no_device_lm": no_device_lm,
+                  "no_device_train": no_device_train}))
 """
 
 
@@ -105,13 +113,16 @@ def test_port_imports_no_jax_and_no_reference_package(isolated):
                 "repro_torch.configs.xlstm_350m",
                 "repro_torch.configs.olmoe_1b_7b",
                 "repro_torch.serving.engine", "repro_torch.serving.lm",
-                "repro_torch.serving.synthetic", "repro_torch.launch.serve"):
+                "repro_torch.serving.synthetic", "repro_torch.launch.serve",
+                "repro_torch.optim", "repro_torch.data",
+                "repro_torch.runtime.steps", "repro_torch.runtime.sharding",
+                "repro_torch.launch.train", "repro_torch.launch.mesh"):
         assert mod in out["modules"]
 
 
 def test_entry_point_without_device_raises_on_cuda_less_host(isolated):
     assert isolated["cuda"] is False
     for key in ("no_device", "no_device_sync", "no_device_serve",
-                "no_device_lm"):
+                "no_device_lm", "no_device_train"):
         assert isolated[key].startswith("raised:")
         assert "device='cpu'" in isolated[key]
