@@ -111,9 +111,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 11. The serving main path: granite-3-2b at full width and depth
     (2,533,531,648 parameters, bf16, random weights from seed 0) served
     by ``ServingEngine`` + ``LMAdapter`` — 4 requests of 2048 prompt
-    tokens and 32 generated tokens, 4 slots, 4 workers — on the ``event``
+    tokens and 16 generated tokens, 4 slots, 4 workers — on the ``event``
     and the ``blocking`` leg, each after an untimed warm-up request.  Both
-    legs emit identical streams of 32 tokens per request; the kernel is
+    legs emit identical streams of 16 tokens per request; the kernel is
     launched exactly 40 x 4 times per leg (prefill only); one request with
     ``attn_impl="ref"`` agrees in its prefill logits within
     ``SERVE_LOGIT_RTOL`` and in its first token where the plain path's
@@ -195,8 +195,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (6,919,096,320 parameters: 16 layers of attention and a MoE block of 64
     experts, top-8), as phase 11 — identical streams on both legs,
     ``flash_attention`` launched exactly 16 x 4 times per leg (prefill)
-    and ``moe_gmm`` 48 x 32 x 4 (three expert products per MoE block, in
-    prefill and in each of the 31 decode steps).  Routing is
+    and ``moe_gmm`` 48 x 16 x 4 (three expert products per MoE block, in
+    prefill and in each of the 15 decode steps).  Routing is
     discontinuous (a one-ulp change of a router input can swap an expert),
     so every MoE block is held alone on the plain path's input to it
     (identical expert choices, y within 2e-2 of its largest value); the
@@ -236,6 +236,34 @@ T4. The manual-DP step on granite-3-2b at full width cut to 8 layers, 4
 T5. Smoke granite trained through ``launch.train`` with asynchronous
     checkpoints, restored at step 6 and continued to 12: bitwise equal to
     an uninterrupted 12-step run.
+B1. The paper's overlap bench, ``bench.overlap.bench()`` at the
+    reference's sizes: the grad-sync modes on smoke granite (fp32, 8
+    layers, 8 logical ranks, 8 x 64 tokens, 64 KiB buckets), the
+    hierarchical / flat ring / native two-axis legs, the stage legs (the
+    ``fused_combine``, ``quantize_wire``, ``dequantize_wire`` and
+    ``gs_stencil`` kernels against unfused passes: fp32, bf16 and the
+    stencil's block and edges bitwise, int8 within 2e-6 of the largest
+    value; one launch of its kernel a fused row), the flat ring with and
+    without the kernel tier (the derived launches), the inter-axis
+    butterflies, the Level-A executors, the progress and tracer legs,
+    every hard assert of the reference; measured beside nominal-predicted
+    seconds.
+B2. The grad-sync modes leg at granite-3-2b's published width in fp32 on
+    8 logical ranks (8 x 64 tokens, 64 KiB buckets), cut to the most
+    layers whose eight replicas and sync buffers reckon under 55 GiB:
+    ranks bitwise equal within each mode, the modes within the
+    reference's bounds, reductions and sentinel waits as derived, peak
+    allocated under 60 GiB; s/step per mode beside ``predict()``.
+B3. The serving bench, ``bench.serve_bench.bench()`` (64 requests, 16
+    slots, 4 workers, 30 ms device steps): identical streams, event
+    tokens/s >= blocking, event p99 <= blocking; the traced leg's file
+    valid under ``python -m repro_torch.obs``.
+B4. ``bench.lm_step.bench()``: the train and decode rows of the ten
+    archs at smoke size, the train rows of archs with Mamba2, mLSTM or
+    MoE blocks (no backward kernel) and of deepseek-coder-33b (head dim 8,
+    which the attention kernel does not take) printed as not run.
+Every B phase zeroes every kernel's launch count before it and reads it
+after; the ``kernels`` line carries them as ``bench_launches``.
 
 After each served model, the memory it held must be free again without
 the cyclic garbage collector (within 1 GiB of what was allocated before).
@@ -1334,10 +1362,11 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # tile or half a tile dropped deep in a row, the last tile dropped).
 FLASH_SERVED_REL_RMS = 1e-2
 # Phases 11, 14 and 17: granite-3-2b, zamba2-2.7b and xlstm-350m at full width
-# and depth, served on one card.
+# and depth, served on one card.  16 generated tokens a request: the legs
+# are host-bound, and the whole script must stay well inside 1200 s.
 GRANITE_PARAMS = 2_533_531_648
 ZAMBA_PARAMS = 2_435_777_440
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS = 4, 2048, 32, 4
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS = 4, 2048, 16, 4
 # The kernel path's prefill logits against the plain attention's, as
 # max|diff| / max|plain logits|.  Both attentions read the same bf16 q, k,
 # v and accumulate in fp32, in different orders (about 1e-6 relative); the
@@ -2196,7 +2225,7 @@ GMM_VIEW_CASES = (((3, 65, 72, 200), 8), ((4, 8, 64, 136), 8),
 GMM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 OLMOE_PARAMS = 6_919_096_320
 # Each MoE block's three expert products, in prefill and in each of the
-# SERVE_GEN - 1 decode steps of a request: 3 x 16 x 32.
+# SERVE_GEN - 1 decode steps of a request: 3 x 16 x 16.
 OLMOE_GMM_PER_REQUEST = 3 * 16 * SERVE_GEN
 MOE_BLOCK_TOL = 2e-2
 
@@ -2780,6 +2809,219 @@ def train_restart(device, tmp: str) -> None:
         f"uninterrupted 12-step run's")
 
 
+# The paper's benches on the card (phases B1-B4), after the training
+# phases.  B2: granite-3-2b at its published width (hf:ibm-granite/
+# granite-3.0-2b-base: d 2048, 32/8 heads of 64, d_ff 8192, vocab 49155,
+# tied embedding) in fp32, as the reference's modes leg, on 8 logical
+# ranks with the reference's batch (8 x 64) and 64 KiB buckets.  Its depth
+# is the most layers at which eight train-state replicas and the fused
+# sync's buffers fit B2_RECKON_GIB by the count below, which leaves a few
+# GiB of the 60 GiB peak gate for the optimizer's temporaries.
+B2_PEAK_GIB, B2_RECKON_GIB = 60.0, 55.0
+B2_REPS = 2
+# fp32 bytes a parameter holds on each rank at the fused sync's peak: the
+# parameter, its AdamW m, v and fp32 master (16), its gradient (4), the
+# packed send buffer (4) and the psum's result (4).
+B2_BYTES_PER_PARAM = 28
+# lm_step's train rows the card does not run, decided from the configs
+# (tests/test_torch_steps.py holds the same list on the CPU).
+LM_STEP_NOT_RUN = {
+    "zamba2_2p7b": "no_backward_kernel", "xlstm_350m": "no_backward_kernel",
+    "olmoe_1b_7b": "no_backward_kernel",
+    "mixtral_8x22b": "no_backward_kernel",
+    "deepseek_coder_33b": "no_kernel_head_dim_8"}
+
+
+def _kernel_wrappers():
+    """Each kernel's counted wrapper, by the name of the ``kernels``
+    line."""
+    from repro_torch.kernels import collective_stages as stages
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import mlstm_chunk as mk
+    from repro_torch.kernels import moe_gmm as mg
+    return {"gs_stencil": stages.gs_stencil,
+            "fused_combine": stages.fused_combine,
+            "quantize_wire": stages.quantize_wire,
+            "dequantize_wire": stages.dequantize_wire,
+            "flash_attention": fa.flash_attention,
+            "mamba2_ssd": ssd.mamba2_ssd, "mlstm_chunk": mk.mlstm_chunk,
+            "moe_gmm": mg.moe_gmm}
+
+
+def _run_counted(phase: str, must: tuple, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with every kernel's count set to 0 just
+    before and read just after; fails unless each kernel of ``must``
+    launched.  Returns (result, counts)."""
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn(*args, **kwargs)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    idle = [k for k in must if not counts[k]]
+    if idle:
+        raise AssertionError(f"{phase}: {idle} launched no time ({counts})")
+    log(f"{phase}: kernel launches {counts}")
+    return out, counts
+
+
+def overlap_bench_full(device, tmp: str) -> dict:
+    """Phase B1: ``bench.overlap.bench()`` at the reference's sizes (its
+    hard asserts; the stage and lowered rows' launches and fused-vs-
+    unfused outputs are checked inside it), then the report re-read here:
+    every fused stage row one launch of its kernel, the lowered rows the
+    derived launches, and measured beside nominal-predicted seconds."""
+    import os
+    from repro_torch.bench import overlap as ov
+    path = os.path.join(tmp, "BENCH_overlap_torch.json")
+    t0 = time.perf_counter()
+    _, counts = _run_counted(
+        "B1 overlap bench", ("fused_combine", "quantize_wire",
+                             "dequantize_wire", "gs_stencil",
+                             "flash_attention"),
+        ov.bench, print_fn=log, json_path=path, device=device)
+    seconds = time.perf_counter() - t0
+    report = json.loads(Path(path).read_text())
+    st = report["stages"]
+    for name, kernel in (("combine_fp32_fused", "fused_combine"),
+                         ("combine_bf16_fused", "fused_combine"),
+                         ("combine_int8_fused", "fused_combine"),
+                         ("combine_int8_unfused", "dequantize_wire"),
+                         ("gs_stencil_fused", "gs_stencil")):
+        if st[name]["launches"][kernel] != 1 or \
+                sum(st[name]["launches"].values()) != 1:
+            raise AssertionError(f"B1 {name}: launches "
+                                 f"{st[name]['launches']}")
+    low = report["lowered_stages"]
+    for name, wire in (("fused", None), ("fused_bf16", "bf16")):
+        want = ov.expected_counts("fused", n_ranks=ov.REF_RANKS,
+                                  sizes=[1 << 16], stage_wire=wire)
+        if {k: low[name]["launches"][k] for k in ov.KERNELS} != \
+                want["launches"]:
+            raise AssertionError(f"B1 lowered {name}: launches "
+                                 f"{low[name]['launches']}, derived "
+                                 f"{want['launches']}")
+    log(f"B1 stages: fused fp32/bf16 bitwise as unfused, int8 max|diff| "
+        f"{st['combine_int8_fused']['max_abs_diff']:.3g}, stencil block and "
+        f"edges bitwise, residual relative "
+        f"{st['gs_stencil_fused']['residual_rel_diff']:.3g}")
+    for sec in ("modes", "hierarchical", "lowered_stages", "inter"):
+        for name, e in report[sec].items():
+            if isinstance(e, dict) and "measured_s" in e:
+                log(f"B1 {sec} {name}: measured {e['measured_s']:.6e} s, "
+                    f"nominal predicted "
+                    f"{e.get('predicted_s', float('nan')):.6e} s")
+    log(f"B1 overlap bench: {seconds:.1f} s")
+    return {"launches": counts, "report": report, "seconds": seconds}
+
+
+def b2_layers(cfg) -> tuple:
+    """(layers, parameters, reckoned GiB): the most layers of ``cfg`` at
+    the modes leg's 8 ranks at ``B2_BYTES_PER_PARAM`` a parameter fit
+    ``B2_RECKON_GIB``."""
+    from repro_torch.bench import overlap as ov
+    from repro_torch.models import model
+    best = None
+    for n in range(1, cfg.n_layers + 1):
+        p = model.param_count(model.Model(cfg.scaled(n_layers=n),
+                                          device="meta"))
+        gib = ov.REF_RANKS * B2_BYTES_PER_PARAM * p / 2**30
+        if gib > B2_RECKON_GIB:
+            break
+        best = (n, p, gib)
+    return best
+
+
+def modes_granite(device) -> dict:
+    """Phase B2: the grad-sync modes leg (``bench.overlap.bench_modes``:
+    ranks bitwise equal within each mode, the modes within the
+    reference's bounds of fused's, reductions and sentinel waits as
+    derived) at granite-3-2b's width in fp32 on 8 logical ranks; s/step
+    per mode beside its prediction; peak allocated memory under 60 GiB."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.bench import overlap as ov
+    full = configs.get("granite-3-2b").scaled(dtype="float32")
+    layers, n_params, gib = b2_layers(full)
+    cfg = full.scaled(n_layers=layers)
+    log(f"B2 granite-3-2b fp32 at {layers} of {full.n_layers} layers: "
+        f"{n_params:,} parameters, reckoned {gib:.2f} GiB over "
+        f"{ov.REF_RANKS} ranks")
+    t0 = time.perf_counter()
+    report, counts = _run_counted(
+        "B2 modes", ("flash_attention",), ov.bench_modes, cfg,
+        reps=B2_REPS, device=device)
+    seconds = time.perf_counter() - t0
+    for mode, e in report["modes"].items():
+        if e["peak_gib"] > B2_PEAK_GIB:
+            raise AssertionError(f"B2 {mode}: peak allocated "
+                                 f"{e['peak_gib']:.2f} GiB")
+        log(f"B2 {mode}: {e['measured_s']:.6f} s/step, predicted sync "
+            f"{e['predicted_s']:.6e} s ({e['n_buckets']} buckets of "
+            f"{report['n_leaves']} leaves, {e['algorithms']}), "
+            f"{e['reductions']} reductions and {e['token_waits']} token "
+            f"waits a rank, peak allocated {e['peak_gib']:.2f} GiB; step 1 "
+            f"bitwise as fused: {e.get('bitwise_as_fused', True)}")
+    log(f"B2 modes leg: {seconds:.1f} s")
+    torch.cuda.empty_cache()
+    return {"layers": layers, "n_params": n_params, "report": report,
+            "launches": counts, "seconds": seconds}
+
+
+def serve_bench_full(device, tmp: str) -> dict:
+    """Phase B3: ``bench.serve_bench.bench()`` (64 requests, 16 slots, 4
+    workers) with its three gates, then the ``--trace`` leg, its file
+    validated by ``python -m repro_torch.obs``."""
+    import os
+    from repro_torch.bench import serve_bench as sb
+    t0 = time.perf_counter()
+    report = sb.bench(json_path=os.path.join(tmp, "BENCH_serve_torch.json"),
+                      print_fn=log, device=device)
+    path = os.path.join(tmp, "serve_trace.json")
+    sb.run_traced(path, print_fn=log, device=device)
+    check = subprocess.run([sys.executable, "-m", "repro_torch.obs", path],
+                           capture_output=True, text=True, timeout=120,
+                           env={**os.environ, "PYTHONPATH": str(
+                               Path(__file__).resolve().parent / "src")})
+    if check.returncode != 0:
+        raise AssertionError(f"B3 trace: {check.stdout}{check.stderr}")
+    seconds = time.perf_counter() - t0
+    log(f"B3 serve bench: event {report['serve']['event']['tokens_per_s']:.3f}"
+        f" tokens/s, blocking "
+        f"{report['serve']['blocking']['tokens_per_s']:.3f}; speedup "
+        f"{report['speedup_tokens_per_s']:.4f}, p99 ratio "
+        f"{report['p99_ratio']:.4f}; trace valid; {seconds:.1f} s")
+    return {"report": report, "seconds": seconds}
+
+
+def lm_step_rows(device) -> dict:
+    """Phase B4: ``bench.lm_step.bench()`` over the ten archs at smoke
+    size: every row printed, the not-run train rows exactly
+    ``LM_STEP_NOT_RUN``."""
+    from repro_torch import configs
+    from repro_torch.bench import lm_step
+    t0 = time.perf_counter()
+    rows, counts = _run_counted("B4 lm_step", ("flash_attention",
+                                               "moe_gmm"),
+                                lm_step.bench, print_fn=log, device=device)
+    want, not_run = [], {}
+    for arch in configs.ARCHS:
+        want.append(f"train_step_{arch}")
+        if configs.smoke(arch).causal:
+            want.append(f"decode_step_{arch}")
+    for name, us, derived in rows:
+        if derived.startswith("not_run="):
+            not_run[name[len("train_step_"):]] = derived.split("=")[1]
+        elif not us > 0:
+            raise AssertionError(f"B4 {name}: {us} us")
+    if [r[0] for r in rows] != want or not_run != LM_STEP_NOT_RUN:
+        raise AssertionError(f"B4 rows {[r[0] for r in rows]}, not run "
+                             f"{not_run}")
+    seconds = time.perf_counter() - t0
+    log(f"B4 lm_step: {len(rows)} rows, not run {not_run}; {seconds:.1f} s")
+    return {"rows": rows, "launches": counts, "seconds": seconds}
+
+
 def freed(arch: str, before: int) -> None:
     """Fail unless the memory a served model held is free again: within 1
     GiB of what was allocated before it was built, with no collection by
@@ -2908,6 +3150,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train_restart(device, tmp)
     log(f"training phases T1-T5: {time.perf_counter() - t_train:.1f} s")
+    t_bench = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        b1 = overlap_bench_full(device, tmp)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        b2 = modes_granite(device)
+        freed("granite-3-2b modes leg", before)
+        b3, b3_launches = _run_counted("B3 serve bench", (),
+                                       serve_bench_full, device, tmp)
+    b4 = lm_step_rows(device)
+    log(f"bench phases B1-B4: {time.perf_counter() - t_bench:.1f} s")
     for version, v in ifs.items():
         log(f"wall IFSKer O1280 {version}: {v['s_per_step']:.6f} s/step, "
             f"peak allocated {v['peak_gib']:.2f} GiB")
@@ -2977,6 +3230,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/moe_gmm.py:48",
         "launches": oserve["launches"]["moe_gmm"], "max_abs_err": gmm_err,
         **gmm_t[OLMOE_GMM_PREFILL[0]]})
+    for k in kernels:
+        k["bench_launches"] = {"B1": b1["launches"][k["name"]],
+                               "B2": b2["launches"][k["name"]],
+                               "B3": b3_launches[k["name"]],
+                               "B4": b4["launches"][k["name"]]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

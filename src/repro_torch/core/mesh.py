@@ -70,8 +70,9 @@ class LogicalMesh:
     ``shape`` maps each axis to its size, in order, like a jax mesh's.
     ``ppermute_calls[r]`` counts the ``ppermute`` calls rank ``r`` took
     part in (every rank executes every call, as in SPMD, whether or not it
-    has a pair); ``token_waits[r]`` counts the sentinel waits on its
-    stream (:meth:`wait_token`).
+    has a pair); ``psum_calls[r]`` counts the ``psum`` calls it took part
+    in; ``token_waits[r]`` counts the sentinel waits on its stream
+    (:meth:`wait_token`).
     """
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
@@ -93,6 +94,7 @@ class LogicalMesh:
             [torch.cuda.Stream(self.device) for _ in range(self.size)]
             if self.device.type == "cuda" else None)
         self.ppermute_calls = [0] * self.size
+        self.psum_calls = [0] * self.size
         self.token_waits = [0] * self.size
         self._depth = threading.local()
 
@@ -102,6 +104,7 @@ class LogicalMesh:
 
     def reset_counts(self) -> None:
         self.ppermute_calls = [0] * self.size
+        self.psum_calls = [0] * self.size
         self.token_waits = [0] * self.size
 
     # -- axes ----------------------------------------------------------------
@@ -233,6 +236,8 @@ class LogicalMesh:
             out[root] = total
             for q in g[1:]:
                 out[q] = self._transfer(total, root, q)
+        for r in range(self.size):
+            self.psum_calls[r] += 1
         return out
 
     def all_gather(self, xs: Sequence[torch.Tensor], axis: Axes

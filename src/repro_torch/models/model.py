@@ -340,6 +340,24 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     return cache
 
 
+def pad_cache(cfg: ModelConfig, cache: Cache, target_len: int) -> Cache:
+    """A prefill cache grown to a fixed decode length, as the reference's
+    ``pad_cache``: every attention entry's k and v zero-padded along time
+    to ``target_len`` (new tensors); recurrent states pass through."""
+    out: Cache = {}
+    for name, _, kind in _block_names(cfg):
+        if name not in cache:
+            continue
+        c = cache[name]
+        if kind in (ATTN, SWA, SHARED_ATTN):
+            out[name] = {n: torch.nn.functional.pad(
+                t, (0, 0, 0, 0, 0, max(target_len - t.shape[2], 0)))
+                for n, t in c.items()}
+        else:
+            out[name] = c
+    return out
+
+
 def _fill_normal(p: torch.Tensor, gen: torch.Generator, std: float) -> None:
     """``p`` <- standard normal × ``std``, drawn in fp32 and cast once, as
     the reference's ``_dense_init`` does (one tensor staged at a time)."""

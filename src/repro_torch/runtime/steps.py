@@ -1,5 +1,4 @@
-"""Train step builders — the port of ``repro/runtime/steps.py``'s train
-steps (prefill and decode live in ``models`` and ``serving``).
+"""Train and serve step builders — the port of ``repro/runtime/steps.py``.
 
 Two distribution modes, as in the reference:
 
@@ -14,6 +13,12 @@ Two distribution modes, as in the reference:
   ``P(D, ...)``); ``core.overlap.sync_grads`` averages the gradients with
   the chosen schedule (fused / bucketed / sentinel) and every rank then
   takes the same optimizer step, so the replicas stay bitwise equal.
+
+The serving steps (:func:`build_prefill_step`, :func:`build_decode_step`)
+are thin wrappers over :func:`~repro_torch.models.model.apply` on the
+mesh's one rank.  :func:`abstract_params` and :func:`abstract_train_state`
+give the shapes and dtypes without memory: trees of tensors on the
+``meta`` device, the port's ``jax.eval_shape``.
 
 A :class:`TrainState` holds the model itself (``params``, an
 ``nn.Module`` whose parameters require grad) and the optimizer state over
@@ -42,7 +47,9 @@ from ..models.config import ModelConfig
 from .sharding import ShardingPolicy, check_policy
 
 __all__ = ["AUX_COEF", "TrainState", "init_train_state", "build_train_step",
-           "build_train_step_manual", "state_to_reference",
+           "build_train_step_manual", "abstract_params",
+           "abstract_train_state", "build_prefill_step",
+           "build_decode_step", "state_to_reference",
            "state_from_reference", "abstract_reference_state"]
 
 AUX_COEF = 0.01
@@ -250,6 +257,72 @@ def build_train_step_manual(cfg: ModelConfig, mesh, policy: ShardingPolicy,
         return step
 
     return make
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+def abstract_params(cfg: ModelConfig) -> model.Model:
+    """The model with every parameter on the ``meta`` device: shapes and
+    dtypes, no memory (the reference's ``jax.eval_shape`` of ``init``)."""
+    return model.Model(cfg, device="meta")
+
+
+def abstract_train_state(cfg: ModelConfig,
+                         opt_cfg: optim.OptimConfig) -> TrainState:
+    """:func:`init_train_state`'s shapes and dtypes on the ``meta``
+    device: the model of :func:`abstract_params` and its AdamW state."""
+    params = abstract_params(cfg)
+    return TrainState(params=params,
+                      opt=optim.init(model.param_tree(params)))
+
+
+def _serving_policy(mesh, policy: ShardingPolicy) -> None:
+    check_policy(mesh, policy)
+    if mesh.size != 1:
+        raise ValueError(f"the serving steps run on one rank, the mesh has "
+                         f"{mesh.size}")
+
+
+def build_prefill_step(cfg: ModelConfig, mesh, policy: ShardingPolicy, *,
+                       abstract_batch=None):
+    """``(params, batch) -> (last-position logits (B, 1, V), cache)``:
+    one prefill pass under ``torch.no_grad``, allocating a cache of the
+    prompt's length (grow it with ``model.pad_cache`` for decode).
+    ``abstract_batch`` is accepted for the reference's signature (nothing
+    is placed)."""
+    _serving_policy(mesh, policy)
+
+    def prefill(params: model.Model, batch):
+        batch = _as_tensors(batch, params.device)
+        with torch.no_grad():
+            logits, cache, _ = model.apply(params, batch, mode="prefill")
+        return logits, cache
+
+    return prefill
+
+
+def build_decode_step(cfg: ModelConfig, mesh, policy: ShardingPolicy, *,
+                      batch: int, cache_len: int, abstract_batch=None,
+                      donate: bool = True):
+    """``(step, cache template)`` as the reference returns ``(jitted,
+    a_cache)``: ``step(params, cache, batch, cache_index) -> (logits,
+    cache)`` runs one decode position under ``torch.no_grad`` and writes
+    the cache in place (so ``donate`` is moot); the template is
+    ``model.init_cache(cfg, batch, cache_len)`` on the ``meta``
+    device."""
+    _serving_policy(mesh, policy)
+    template = model.init_cache(cfg, batch, cache_len, device="meta")
+
+    def decode(params: model.Model, cache, batch_, cache_index):
+        batch_ = _as_tensors(batch_, params.device)
+        with torch.no_grad():
+            logits, cache, _ = model.apply(params, batch_, mode="decode",
+                                           cache=cache,
+                                           cache_index=int(cache_index))
+        return logits, cache
+
+    return decode, template
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """``repro_torch`` stands alone: it imports neither ``jax`` nor anything of
 the JAX package ``repro``, and its entry points default to CUDA and raise
 on a host without it (the Gauss–Seidel and Level-B benches, the serving
-CLI, ``LMAdapter`` and the training CLI).  Both checks run in a fresh interpreter."""
+CLI, ``LMAdapter``, the training CLI, the overlap, serving and LM-step
+benches and their aggregator).  Both checks run in a fresh interpreter."""
 
 import json
 import os
@@ -70,7 +71,21 @@ try:
     no_device_train = "ran"
 except RuntimeError as e:
     no_device_train = "raised: " + str(e)
-print(json.dumps({"modules": mods, "bad": bad, "cuda": torch.cuda
+from repro_torch.bench import lm_step, run as bench_run, serve_bench
+late = {}
+for key, call in (
+        ("no_device_overlap_bench", lambda: overlap.bench(smoke=True)),
+        ("no_device_serve_bench", lambda: serve_bench.bench(smoke=True)),
+        ("no_device_serve_trace",
+         lambda: serve_bench.run_traced("unused.json")),
+        ("no_device_lm_step", lambda: lm_step.bench(archs=["granite-3-2b"])),
+        ("no_device_run", lambda: bench_run.main([]))):
+    try:
+        call()
+        late[key] = "ran"
+    except RuntimeError as e:
+        late[key] = "raised: " + str(e)
+print(json.dumps({**late, "modules": mods, "bad": bad, "cuda": torch.cuda
                   .is_available(), "no_device": no_device,
                   "no_device_sync": no_device_sync,
                   "no_device_serve": no_device_serve,
@@ -116,13 +131,18 @@ def test_port_imports_no_jax_and_no_reference_package(isolated):
                 "repro_torch.serving.synthetic", "repro_torch.launch.serve",
                 "repro_torch.optim", "repro_torch.data",
                 "repro_torch.runtime.steps", "repro_torch.runtime.sharding",
-                "repro_torch.launch.train", "repro_torch.launch.mesh"):
+                "repro_torch.launch.train", "repro_torch.launch.mesh",
+                "repro_torch.bench.serve_bench", "repro_torch.bench.lm_step",
+                "repro_torch.bench.run"):
         assert mod in out["modules"]
 
 
 def test_entry_point_without_device_raises_on_cuda_less_host(isolated):
     assert isolated["cuda"] is False
     for key in ("no_device", "no_device_sync", "no_device_serve",
-                "no_device_lm", "no_device_train"):
+                "no_device_lm", "no_device_train",
+                "no_device_overlap_bench", "no_device_serve_bench",
+                "no_device_serve_trace", "no_device_lm_step",
+                "no_device_run"):
         assert isolated[key].startswith("raised:")
         assert "device='cpu'" in isolated[key]
