@@ -259,11 +259,46 @@ B3. The serving bench, ``bench.serve_bench.bench()`` (64 requests, 16
     tokens/s >= blocking, event p99 <= blocking; the traced leg's file
     valid under ``python -m repro_torch.obs``.
 B4. ``bench.lm_step.bench()``: the train and decode rows of the ten
-    archs at smoke size, the train rows of archs with Mamba2, mLSTM or
-    MoE blocks (no backward kernel) and of deepseek-coder-33b (head dim 8,
-    which the attention kernel does not take) printed as not run.
+    archs at smoke size (deepseek-coder-33b's train row at head dim 8
+    too, on the kernel's padded FMA instance), the train rows of archs
+    with Mamba2, mLSTM or MoE blocks (no backward kernel) printed as not
+    run.
 Every B phase zeroes every kernel's launch count before it and reads it
 after; the ``kernels`` line carries them as ``bench_launches``.
+S1. The auto-mode train step over a (4, 1) logical mesh (FSDP over the
+    data axis; ``ShardingPolicy()``, so remat ``"dots"`` with FSDP's
+    regathering saved-tensor hook) on granite-3-2b at full width and
+    depth, seed 0, 3 steps of 4 x 1024 tokens, one sequence a rank, after
+    one step of the one-rank auto step on the same first batch: step 1's
+    loss within 1e-2 and grad norm within 5e-2 of the one-rank step's;
+    per leaf, the new fp32 masters within ``MASTER_MOVE_SHARE`` of the
+    one-rank step's own move of them (fp64 sums of |x|) and the sum of
+    |m| within ``m_sum_bound``; exactly 80 ``flash_attention`` launches a
+    rank a step (40 layers, each recomputed once in the backward), all at
+    (1, 1024, 32/8, 64) with the lse; the ranks' state bytes summing to
+    one replica's (14 bytes a bf16 parameter, 16 an fp32 one) plus the
+    copies of blocks that several ranks hold; s/step and peak allocated
+    memory.
+S2. The same on (2, 2) with FSDP, TP and SP: the kernel at (2, 1024,
+    16/4, 64) a rank, the embedding replicated over the model axis (49155
+    does not divide 2).
+S3. olmoe-1b-7b served at full width on (1, 2) with EP (32 experts a
+    rank, attention 8/8 heads a rank): one request of 2048 prompt tokens
+    through ``build_prefill_step`` and 4 greedy ``build_decode_step``
+    steps, against the one-rank steps: every logit within 5e-2 of the
+    largest one-rank logit, the greedy tokens equal; exactly 48
+    ``moe_gmm`` launches a rank a pass at (32, 320, 2048, 1024) and (32,
+    320, 1024, 2048) in prefill and at the 8-slot shapes in decode, and 16
+    ``flash_attention`` launches a rank at (1, 2048, 8/8, 128).  Per MoE
+    layer of the prefill, the router input's distance from the one-rank
+    one and the tokens whose top-k expert set differs are printed.  Then
+    the same with an fp32 copy of the model: logits within 1e-4 of the
+    largest, tokens equal.
+Each S phase zeroes every kernel's count before it and reads it after;
+the ``kernels`` line carries them as ``shard_launches``, and the memory a
+phase held must be free after it.  Then ``flash_attention`` is timed at
+S1-S3's per-rank shapes and at head dim 8, and ``moe_gmm`` at S3's, as
+in phases 12 and 21.
 
 After each served model, the memory it held must be free again without
 the cyclic garbage collector (within 1 GiB of what was allocated before).
@@ -278,12 +313,14 @@ limit, and last ``{"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -463,12 +500,17 @@ def check_gs_streams(stages, device, n_calls: int = 50) -> None:
 def check_gs_one_launch(stages, device, n_calls: int = 10) -> None:
     """torch.profiler over ``n_calls`` eager calls sees exactly that many
     device kernels, all ``gs_stencil`` (no second pass, no memset, no
-    halo cast)."""
+    halo cast).  A first profiled call, not counted, starts CUPTI: the
+    first session of a process has been seen to miss its first kernel
+    (9 of 10 on an H100 in one run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     args = stencil_inputs(BLOCK, BLOCK, torch.float32, 10, device)
     stages.gs_stencil(*args)
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        stages.gs_stencil(*args)
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n_calls):
             stages.gs_stencil(*args)
@@ -577,7 +619,9 @@ def iwait_probe(stages, ref, device) -> None:
 
     def producer():
         with torch.cuda.stream(side):
-            torch.cuda._sleep(200_000_000)     # keep the stream busy
+            # keep the stream busy (about 1 s: a tenth of that ran out
+            # before the handle was bound on a slow host)
+            torch.cuda._sleep(2_000_000_000)
             out["v"] = stages.gs_stencil(block, top, left, bottom, right)
             handle = tac.ArrayHandle(out["v"])
         state["in_flight_at_bind"] = not handle.test()
@@ -1345,6 +1389,14 @@ FLASH_CASES = (
     (2, 77, 200, 8, 2, 64, False, 50),
     (1, 130, 257, 6, 2, 16, False, None),
     (2, 200, 333, 4, 4, 32, True, 64),
+    # head dim 8: deepseek-coder-33b's smoke shape (lm_step's 2 x 64) and
+    # a ragged pair, on the FMA instance padded to 16 columns
+    (2, 64, 64, 8, 2, 8, True, None),
+    (1, 130, 257, 8, 2, 8, False, None),
+    # the per-rank shapes of the sharded phases S1, S2 and S3
+    (1, 1024, 1024, 32, 8, 64, True, None),
+    (2, 1024, 1024, 16, 4, 64, True, None),
+    (1, 2048, 2048, 8, 8, 128, True, None),
 )
 GRANITE_PREFILL = (1, 2048, 2048, 32, 8, 64, True, None)
 # zamba2-2.7b's shared attention: 32 heads of dim 80 over 32 kv heads
@@ -1379,6 +1431,9 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_SLOTS = 4, 2048, 16, 4
 # with random weights amplifies such flips to O(1) (compare_chaotic), so
 # its whole-model gate runs on an fp32 copy of its weights.
 SERVE_LOGIT_RTOL = 5e-2
+# S3's fp32 copy: the sharded steps differ from the one-rank steps only in
+# summation order, which fp32 keeps ~2^16 times smaller than bf16 does
+SERVE_FP32_RTOL = 1e-4
 BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 
 
@@ -1719,7 +1774,7 @@ def time_flash_attention(fa, ref, device, cases) -> dict:
         lib = F.scaled_dot_product_attention(*sdpa[0], is_causal=True,
                                              enable_gqa=True).transpose(1, 2)
         lib_err = _max_abs_diff(lib, fa.flash_attention(*ring[0]))
-        flops = 2 * 2 * S * T * D * H / 2          # QK^T and PV, causal half
+        flops = 2 * 2 * B * S * T * D * H / 2      # QK^T and PV, causal half
         nbytes = 2 * (2 * B * S * H * D + 2 * B * T * Hkv * D)
         t_ops = flops / BF16_FLOPS * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2208,6 +2263,9 @@ GMM_CASES = (
 )
 OLMOE_GMM_DECODE = ((64, 8, 2048, 1024), (64, 8, 1024, 2048))
 OLMOE_GMM_PREFILL = ((64, 320, 2048, 1024), (64, 320, 1024, 2048))
+# S3's per-rank expert products under EP: 32 of the 64 experts a rank
+S3_GMM_PREFILL = ((32, 320, 2048, 1024), (32, 320, 1024, 2048))
+S3_GMM_DECODE = ((32, 8, 2048, 1024), (32, 8, 1024, 2048))
 # The edges of the wgmma route's tiles (bf16, K and N multiples of 8): C
 # across the decode tile's 8 rows of x, the prefill tile's 160 (159-161,
 # 319-321 around olmoe's cap) and 64-row steps, K and N that are not
@@ -2261,7 +2319,8 @@ def check_moe_gmm(mg, ref, device) -> float:
     prefill shape (bf16)."""
     import torch
     worst = 0.0
-    olmoe = OLMOE_GMM_DECODE + OLMOE_GMM_PREFILL
+    olmoe = OLMOE_GMM_DECODE + OLMOE_GMM_PREFILL + S3_GMM_PREFILL \
+        + S3_GMM_DECODE
     routes = set()
     runs = [(dt, case, None) for dt in ("float32", "bfloat16")
             for case in GMM_CASES + olmoe]
@@ -2400,18 +2459,19 @@ def compare_moe(arch, cfg, model, kernels, plain, device, stream) -> dict:
     return out
 
 
-def time_moe_gmm(mg, ref, device) -> dict:
+def time_moe_gmm(mg, ref, device,
+                 cases=OLMOE_GMM_PREFILL + OLMOE_GMM_DECODE) -> dict:
     """Phase 21: times per call at olmoe's two prefill and two decode
-    shapes, bf16, as in phase 5 (two input sets a shape: the
-    weights alone, 268 MB, exceed the 50 MB L2, so every launch reads cold
-    data), beside one PyTorch call computing the same function
-    (``library_ms``: ``torch.bmm``, bf16 in and out).  The bound counts x
-    and w read once and the output written once, and 2 FLOP per
+    shapes (S3's per-rank shapes after S3), bf16, as in phase 5 (two input
+    sets a shape: the weights alone, 268 MB, exceed the 50 MB L2, so every
+    launch reads cold data), beside one PyTorch call computing the same
+    function (``library_ms``: ``torch.bmm``, bf16 in and out).  The bound
+    counts x and w read once and the output written once, and 2 FLOP per
     multiply-add of every expert's every slot (the reference computes the
     zero rows of unfilled slots too).  Returns them by shape."""
     import torch
     out = {}
-    for case in OLMOE_GMM_PREFILL + OLMOE_GMM_DECODE:
+    for case in cases:
         E, C, K, N = case
         ring = [_gmm_inputs(case, torch.bfloat16, device, seed=80 + i)
                 for i in range(2)]
@@ -2828,8 +2888,7 @@ B2_BYTES_PER_PARAM = 28
 LM_STEP_NOT_RUN = {
     "zamba2_2p7b": "no_backward_kernel", "xlstm_350m": "no_backward_kernel",
     "olmoe_1b_7b": "no_backward_kernel",
-    "mixtral_8x22b": "no_backward_kernel",
-    "deepseek_coder_33b": "no_kernel_head_dim_8"}
+    "mixtral_8x22b": "no_backward_kernel"}
 
 
 def _kernel_wrappers():
@@ -3022,6 +3081,404 @@ def lm_step_rows(device) -> dict:
     return {"rows": rows, "launches": counts, "seconds": seconds}
 
 
+# Phases S1-S3: the auto-mode steps over logical meshes on one card.
+SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 4, 1024, 3
+SHARD_OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+S1_FLASH = ((1, 1024, 32, 64), (1, 1024, 8, 64), True)
+S2_FLASH = ((2, 1024, 16, 64), (2, 1024, 4, 64), True)
+S3_FLASH = ((1, 2048, 8, 128), (1, 2048, 8, 128), False)
+S3_PROMPT, S3_DECODE = 2048, 4
+# The attention kernel's per-rank shapes in S1, S2 and S3, and
+# deepseek-coder-33b's smoke shape at head dim 8, timed after S3.
+S_FLASH_CASES = ((1, 1024, 1024, 32, 8, 64, True, None),
+                 (2, 1024, 1024, 16, 4, 64, True, None),
+                 (1, 2048, 2048, 8, 8, 128, True, None),
+                 (2, 64, 64, 8, 2, 8, True, None))
+
+
+# S1/S2: the share of the one-rank step's own move of a leaf's masters
+# that the sharded masters may lie from the one-rank step's (fp64 sums of
+# |x| over the leaf).  AdamW's first step moves each fp32 master by lr ·
+# (g / (|g| + eps) + wd · master): about lr · sign(g), whatever g's size.
+# The two runs' bf16 gradients differ only in summation order (the
+# one-rank step rounds each element's sum over 4096 tokens once; the
+# sharded step rounds each rank's partial and then their sum), so an
+# element's step flips only where its partials cancel to within a few
+# bf16 ulps, and a flip moves it by 2 lr: the distance is twice the
+# flipped share of the move.  On the H100 the sound runs read at most
+# 0.0112 (S1) and 0.0242 (S2); the bound is four times the larger, and a
+# skipped update lies at the whole move (1), a sign-flipped one at twice
+# it.
+MASTER_MOVE_SHARE = 0.1
+
+
+def m_sum_bound(gnorm_rel: float, m_abs: float) -> float:
+    """S1/S2's bound on one leaf's fp64 sum of |m| between the sharded
+    and the one-rank step 1: ``m`` is 0.1 of the clipped gradient, so the
+    sums differ by the clip factor (the grad norms' relative difference)
+    and by rounding that averages out over the leaf; 2^-7 more."""
+    return (gnorm_rel + 2.0 ** -7) * m_abs
+
+
+@contextlib.contextmanager
+def _kernel_shapes():
+    """A context recording the shapes every ``flash_attention`` and
+    ``moe_gmm`` call of ``kernels.ops`` hands its wrapper (the wrappers
+    and their counts untouched): a dict of Counters."""
+    import collections
+    from repro_torch.kernels import ops
+    seen = {"flash_attention": collections.Counter(),
+            "moe_gmm": collections.Counter()}
+    flash, gmm = ops._flash, ops._gmm
+
+    class Flash:
+        @staticmethod
+        def flash_attention(q, k, v, **kw):
+            seen["flash_attention"][(tuple(q.shape), tuple(k.shape),
+                                     bool(kw.get("return_lse")))] += 1
+            return flash.flash_attention(q, k, v, **kw)
+
+    class Gmm:
+        @staticmethod
+        def moe_gmm(x, w):
+            seen["moe_gmm"][(w.shape[0], x.shape[1], x.shape[2],
+                             w.shape[2])] += 1
+            return gmm.moe_gmm(x, w)
+
+    ops._flash, ops._gmm = Flash, Gmm
+    try:
+        yield seen
+    finally:
+        ops._flash, ops._gmm = flash, gmm
+
+
+def _distinct_blocks(leaf) -> list:
+    """(box, block) of each distinct block of a placed leaf, or the whole
+    tensor (box None)."""
+    from repro_torch.runtime.sharding import Placed
+    if not isinstance(leaf, Placed):
+        return [(None, leaf)]
+    return [(leaf.box(r), b) for r, b in enumerate(leaf.blocks)
+            if all(leaf.box(q) != leaf.box(r) for q in range(r))]
+
+
+def _abs_sums(tree) -> list:
+    """Per leaf (tree order), the fp64 sum of |x| over its distinct
+    blocks."""
+    from repro_torch.core.overlap import tree_flatten
+    return [sum(float(b.double().abs().sum()) for _, b in
+                _distinct_blocks(leaf)) for leaf in tree_flatten(tree)[0]]
+
+
+def _distance(leaf, whole) -> float:
+    """The fp64 sum of |leaf - whole| over a (placed) leaf's distinct
+    blocks; ``whole`` is the whole tensor on the host."""
+    from repro_torch.runtime.sharding import _slice
+    out = 0.0
+    for box, b in _distinct_blocks(leaf):
+        w = whole if box is None else _slice(whole, box)
+        out += float((b - w.to(b.device)).double().abs().sum())
+    return out
+
+
+def one_rank_train_step(cfg, batch, device) -> dict:
+    """Step 1 of the one-rank auto step on ``batch``, seed 0: loss, grad
+    norm, lr, each leaf's fp64 sum of |m|, the new fp32 masters on the
+    host, and each leaf's fp64 sum of |new - initial master| (how far the
+    step moved it: where a skipped update would leave it)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.sharding import ShardingPolicy
+    opt_cfg = optim.OptimConfig(**SHARD_OPT)
+    fn, _ = steps.build_train_step(
+        cfg, make_mesh((1, 1), ("data", "model"), device),
+        ShardingPolicy(remat=None), opt_cfg)
+    state = steps.init_train_state(cfg, opt_cfg, 0, device=device)
+    initial = [t.to("cpu", copy=True)
+               for t in steps.tree_flatten(state.opt.master)[0]]
+    state, m = fn(state, batch)
+    masters = steps.tree_flatten(state.opt.master)[0]
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "lr": m["lr"], "m": _abs_sums(state.opt.m),
+           "moved": [_distance(t, i) for t, i in zip(masters, initial)],
+           "masters": [t.to("cpu", copy=True) for t in masters]}
+    del state, fn, m, masters, initial
+    torch.cuda.empty_cache()
+    return out
+
+
+def _replica_bytes(state) -> tuple:
+    """(one replica's bytes, the extra copies' bytes) of a placed state,
+    from the leaves' shapes, dtypes and shardings."""
+    import math
+    from repro_torch.core.overlap import tree_flatten
+    replica = extra = 0
+    for leaf in tree_flatten((state.params, state.opt.m, state.opt.v,
+                              state.opt.master))[0]:
+        size = math.prod(leaf.shape) * leaf.blocks[0].element_size()
+        replica += size
+        extra += size * (leaf.sharding.replicas() - 1)
+    return replica, extra
+
+
+def train_sharded(phase: str, shape: tuple, policy, flash_shape,
+                  device) -> dict:
+    """Phases S1/S2: the one-rank step 1 on the first batch, then
+    ``SHARD_STEPS`` steps of the auto-mode step placed over a logical mesh
+    of ``shape`` (see the module's note)."""
+    import math
+    import torch
+    from repro_torch import configs, optim
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import sharding, steps
+    cfg = configs.get("granite-3-2b")
+    data = SyntheticLMData(cfg, batch=SHARD_BATCH, seq=SHARD_SEQ, seed=0)
+    one = one_rank_train_step(cfg, to_device(data.batch_at(0), device),
+                              device)
+    opt_cfg = optim.OptimConfig(**SHARD_OPT)
+    mesh = make_mesh(shape, ("data", "model"), device)
+    fn, shardings = steps.build_train_step(cfg, mesh, policy, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.init_train_state(cfg, opt_cfg, 0, device=device,
+                                   shardings=shardings)
+    per_rank = sharding.placed_bytes((state.params, state.opt), mesh)
+    replica, extra = _replica_bytes(state)
+    want_replica = sum(p.numel() * (p.element_size() + 12) for p in
+                       steps.abstract_params(cfg).parameters())
+    if sum(per_rank) != replica + extra or replica != want_replica:
+        raise AssertionError(f"{phase}: ranks hold {per_rank} bytes, one "
+                             f"replica {replica} ({want_replica} from the "
+                             f"parameters) plus {extra} of copies")
+    log(f"{phase}: train state per rank "
+        f"{', '.join(f'{b / 2**30:.3f}' for b in per_rank)} GiB; one replica "
+        f"{replica / 2**30:.3f} GiB + {extra / 2**30:.3f} GiB of blocks held "
+        f"by several ranks")
+    steps_log = []
+    n_ranks = mesh.size
+    # a layer's attention runs once in the forward and, under remat, once
+    # more in the backward's recomputed forward
+    per_rank_step = cfg.n_layers * (2 if policy.remat else 1)
+    fa.flash_attention.launches = 0        # the sharded steps' alone
+    for k in range(SHARD_STEPS):
+        batch = to_device(data.batch_at(k), device)
+        before = fa.flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _kernel_shapes() as seen:
+            state, m = fn(state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = fa.flash_attention.launches - before
+        if launches != per_rank_step * n_ranks or dict(
+                seen["flash_attention"]) != {flash_shape:
+                                             per_rank_step * n_ranks}:
+            raise AssertionError(f"{phase} step {k + 1}: {launches} "
+                                 f"flash_attention launches, shapes "
+                                 f"{dict(seen['flash_attention'])} "
+                                 f"({per_rank_step} a rank at {flash_shape}"
+                                 f" expected)")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{phase} step {k + 1}: loss {loss}, grad "
+                                 f"norm {gnorm}")
+        if k == 0:
+            dl = abs(loss - one["loss"]) / abs(one["loss"])
+            dg = abs(gnorm - one["grad_norm"]) / one["grad_norm"]
+            if not (dl <= TRAIN_LOSS_RTOL and dg <= TRAIN_GNORM_RTOL):
+                raise AssertionError(
+                    f"{phase} step 1: loss {loss} / grad norm {gnorm} "
+                    f"against the one-rank step's {one['loss']} / "
+                    f"{one['grad_norm']}: relative {dl:.3g} / {dg:.3g}")
+            worst, least = [0.0, 0.0], math.inf
+            for i, (leaf, ma, wa, want, moved) in enumerate(zip(
+                    steps.tree_flatten(state.opt.master)[0],
+                    _abs_sums(state.opt.m), one["m"], one["masters"],
+                    one["moved"])):
+                dist, ba = _distance(leaf, want), m_sum_bound(dg, wa)
+                # moved > 0: a skipped update (at distance moved) fails
+                if not (0 < moved and dist <= MASTER_MOVE_SHARE * moved
+                        and abs(ma - wa) <= ba):
+                    raise AssertionError(
+                        f"{phase} leaf {i} {leaf.shape}: masters at "
+                        f"{dist} from the one-rank step's, which moved "
+                        f"them by {moved} (bound {MASTER_MOVE_SHARE} of "
+                        f"it); |m| sum {ma} vs {wa} (bound {ba})")
+                worst = [max(worst[0], dist / moved),
+                         max(worst[1], abs(ma - wa) / ba if ba else 0.0)]
+                least = min(least, moved / (float(one["lr"]) *
+                                            math.prod(leaf.shape)))
+            log(f"{phase} step 1 against the one-rank step: loss {dl:.3g}, "
+                f"grad norm {dg:.3g} relative (<= {TRAIN_LOSS_RTOL}, "
+                f"{TRAIN_GNORM_RTOL}); per leaf, the masters lie at most "
+                f"{worst[0]:.4g} of the one-rank move from its masters "
+                f"(<= {MASTER_MOVE_SHARE}; a skipped update lies at 1, a "
+                f"sign-flipped one at 2; the least move is {least:.4g} lr "
+                f"an element), the |m| sums at most {worst[1]:.3g} of "
+                f"their bounds")
+            one.pop("masters")
+        steps_log.append({"step": k + 1, "loss": loss, "grad_norm": gnorm,
+                          "s_per_step": dt, "tokens_per_s":
+                          SHARD_BATCH * SHARD_SEQ / dt,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2**30})
+        log(f"{phase} step {k + 1}: loss {loss:.6f}, grad norm {gnorm:.6f}, "
+            f"{dt:.6f} s/step, {SHARD_BATCH * SHARD_SEQ / dt:.1f} tokens/s, "
+            f"peak allocated {steps_log[-1]['peak_gib']:.2f} GiB; "
+            f"{launches // n_ranks} flash_attention launches a rank at "
+            f"{flash_shape}")
+    del state, fn, m
+    return {"log": steps_log, "state_gib": [b / 2**30 for b in per_rank],
+            "one_rank": {k: one[k] for k in ("loss", "grad_norm")}}
+
+
+def _greedy_serve(prefill, decode, params, cache_of, toks, device):
+    """One request: prefill, then ``S3_DECODE`` decode steps fed their own
+    greedy tokens.  Returns (each step's logits on the host, tokens)."""
+    import torch
+    logits, cache = prefill(params, {"tokens": toks})
+    cache = cache_of(cache)
+    outs, tokens = [logits.float().cpu()], []
+    for i in range(S3_DECODE):
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        tokens.append(int(nxt[0, 0]))
+        logits, cache = decode(params, cache, {"tokens": nxt},
+                               S3_PROMPT + i)
+        outs.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    return outs, tokens
+
+
+@contextlib.contextmanager
+def _routes():
+    """A context recording every ``layers.MoE.route`` call: a list of
+    (the router's input, the top-k expert ids), in call order."""
+    from repro_torch.models import layers
+    seen = []
+    route = layers.MoE.route
+
+    def recorded(self, x, router=None):
+        out = route(self, x, router)
+        seen.append((x.detach().clone(), out[1].clone()))
+        return out
+
+    layers.MoE.route = recorded
+    try:
+        yield seen
+    finally:
+        layers.MoE.route = route
+
+
+def _route_diffs(one, sharded, n_layers: int, n_ranks: int) -> list:
+    """Per MoE layer of the prefill, between the one-rank pass and rank 0
+    of the sharded pass (each model rank routes the whole sequence): the
+    router input's max |difference| over its max |x|, and the number of
+    tokens whose top-k expert set differs."""
+    out = []
+    for i in range(n_layers):
+        (x1, e1), (xs, es) = one[i], sharded[i * n_ranks]
+        flips = int((e1.sort(-1).values != es.sort(-1).values)
+                    .any(-1).sum())
+        out.append((float((xs.float() - x1.float()).abs().max()
+                          / x1.float().abs().max()), flips))
+    return out
+
+
+def serve_sharded_olmoe(device, dtype: Optional[str] = None) -> dict:
+    """Phase S3: olmoe-1b-7b served on one rank, then on (1, 2) with EP;
+    with ``dtype``, a copy of the model in that dtype (the logits' bound
+    then ``SERVE_FP32_RTOL``).  Also reports, per MoE layer of the
+    prefill, how far the sharded router input lies from the one-rank one
+    and how many tokens' top-k expert sets differ."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as mg
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.runtime import sharding, steps
+    from repro_torch.runtime.sharding import ShardingPolicy
+    cfg = configs.get("olmoe-1b-7b")
+    phase, bound = "S3", SERVE_LOGIT_RTOL
+    if dtype is not None:
+        cfg, phase, bound = cfg.scaled(dtype=dtype), f"S3 {dtype}", \
+            SERVE_FP32_RTOL
+    pol = ShardingPolicy()
+    net = model.init(cfg, 0, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (1, S3_PROMPT), generator=gen,
+                         device=device)
+    length = S3_PROMPT + S3_DECODE
+    one = make_mesh((1, 1), ("data", "model"), device)
+    dec, _ = steps.build_decode_step(cfg, one, pol, batch=1,
+                                     cache_len=length)
+    with _routes() as routes_one:
+        want, want_tokens = _greedy_serve(
+            steps.build_prefill_step(cfg, one, pol), dec, net,
+            lambda c: model.pad_cache(cfg, c, length), toks, device)
+    mesh = make_mesh((1, 2), ("data", "model"), device)
+    params = steps.place_params(net, sharding.param_shardings(mesh, net,
+                                                              pol))
+    del net
+    torch.cuda.empty_cache()
+    per_rank = sharding.placed_bytes(params, mesh)
+    prefill = steps.build_prefill_step(cfg, mesh, pol)
+    decode, template = steps.build_decode_step(cfg, mesh, pol, batch=1,
+                                               cache_len=length)
+    cache_sh = sharding.cache_shardings(mesh, template, pol)
+    mg.moe_gmm.launches = fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _kernel_shapes() as seen, _routes() as routes_sharded:
+        got, tokens = _greedy_serve(
+            prefill, decode, params,
+            lambda c: sharding.place(model.pad_cache(
+                cfg, sharding.gather(c), length), cache_sh), toks, device)
+    seconds = time.perf_counter() - t0
+    n, L = mesh.size, cfg.n_layers
+    want_gmm = {S3_GMM_PREFILL[0]: 2 * L * n, S3_GMM_PREFILL[1]: L * n,
+                S3_GMM_DECODE[0]: 2 * L * n * S3_DECODE,
+                S3_GMM_DECODE[1]: L * n * S3_DECODE}
+    if dict(seen["moe_gmm"]) != want_gmm or \
+            mg.moe_gmm.launches != 3 * L * n * (1 + S3_DECODE):
+        raise AssertionError(f"{phase}: moe_gmm launches "
+                             f"{mg.moe_gmm.launches}, shapes "
+                             f"{dict(seen['moe_gmm'])} ({3 * L} a rank a "
+                             f"pass: {want_gmm})")
+    if dict(seen["flash_attention"]) != {S3_FLASH: L * n} or \
+            fa.flash_attention.launches != L * n:
+        raise AssertionError(f"{phase}: flash_attention launches "
+                             f"{fa.flash_attention.launches}, shapes "
+                             f"{dict(seen['flash_attention'])}")
+    layers = _route_diffs(routes_one, routes_sharded, L, n)
+    del routes_one, routes_sharded
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not err <= bound * scale or tokens != want_tokens:
+        raise AssertionError(f"{phase}: max |logits - one rank| {err} "
+                             f"(bound {bound} x {scale}); tokens "
+                             f"{tokens} vs {want_tokens}")
+    log(f"{phase} olmoe-1b-7b on (1, 2), EP: params per rank "
+        f"{', '.join(f'{b / 2**30:.3f}' for b in per_rank)} GiB; prefill of "
+        f"{S3_PROMPT} + {S3_DECODE} greedy decode steps in {seconds:.3f} s; "
+        f"max |logits - one rank| {err:.4g} ({err / scale:.3g} of the "
+        f"largest logit, <= {bound}); tokens {tokens} equal; "
+        f"moe_gmm {dict(seen['moe_gmm'])}, flash_attention "
+        f"{dict(seen['flash_attention'])} (over {n} ranks)")
+    log(f"{phase} per MoE layer of the prefill (router input's max |sharded"
+        f" - one rank| / max |x|, tokens whose top-{cfg.top_k} set "
+        f"differs, of {S3_PROMPT}): "
+        + ", ".join(f"{i}: {d:.3g}/{f}" for i, (d, f) in enumerate(layers)))
+    del params, prefill, decode
+    return {"seconds": seconds, "max_abs_err": err, "rel_err": err / scale,
+            "params_gib": [b / 2**30 for b in per_rank], "layers": layers}
+
+
 def freed(arch: str, before: int) -> None:
     """Fail unless the memory a served model held is free again: within 1
     GiB of what was allocated before it was built, with no collection by
@@ -3161,6 +3618,27 @@ def main() -> int:
                                        serve_bench_full, device, tmp)
     b4 = lm_step_rows(device)
     log(f"bench phases B1-B4: {time.perf_counter() - t_bench:.1f} s")
+    t_shard = time.perf_counter()
+    from repro_torch.runtime.sharding import ShardingPolicy
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    s1, s1_launches = _run_counted(
+        "S1 granite-3-2b (4, 1)", ("flash_attention",), train_sharded, "S1",
+        (4, 1), ShardingPolicy(), S1_FLASH, device)
+    freed("S1 granite-3-2b (4, 1)", before)
+    s2, s2_launches = _run_counted(
+        "S2 granite-3-2b (2, 2)", ("flash_attention",), train_sharded, "S2",
+        (2, 2), ShardingPolicy(), S2_FLASH, device)
+    freed("S2 granite-3-2b (2, 2)", before)
+    s3, s3_launches = _run_counted(
+        "S3 olmoe-1b-7b (1, 2)", ("flash_attention", "moe_gmm"),
+        serve_sharded_olmoe, device)
+    freed("S3 olmoe-1b-7b (1, 2)", before)
+    serve_sharded_olmoe(device, "float32")
+    freed("S3 olmoe-1b-7b float32 (1, 2)", before)
+    time_flash_attention(fa, ref, device, S_FLASH_CASES)
+    time_moe_gmm(mg, ref, device, S3_GMM_PREFILL + S3_GMM_DECODE)
+    log(f"sharded phases S1-S3: {time.perf_counter() - t_shard:.1f} s")
     for version, v in ifs.items():
         log(f"wall IFSKer O1280 {version}: {v['s_per_step']:.6f} s/step, "
             f"peak allocated {v['peak_gib']:.2f} GiB")
@@ -3181,6 +3659,15 @@ def main() -> int:
     for mode, v in dp.items():
         log(f"train manual DP {mode}: {v['s_per_step']:.6f} s/step, "
             f"{v['token_waits']} token waits a rank")
+    for phase, run in (("S1 (4, 1)", s1), ("S2 (2, 2)", s2)):
+        for e in run["log"]:
+            log(f"train sharded {phase} step {e['step']}: "
+                f"{e['s_per_step']:.6f} s/step, {e['tokens_per_s']:.1f} "
+                f"tokens/s, peak allocated {e['peak_gib']:.2f} GiB; state "
+                f"{max(run['state_gib']):.3f} GiB a rank")
+    log(f"serve sharded S3 (1, 2): {s3['seconds']:.3f} s for prefill and "
+        f"{S3_DECODE} decode steps; params {max(s3['params_gib']):.3f} GiB "
+        f"a rank")
     log(f"attention backward (plain) at {GRANITE_TRAIN}: "
         f"{grads['bwd_ms']:.3f} ms; kernel forward with lse "
         f"{grads['fwd_lse_ms']:.4f} ms, without {grads['fwd_ms']:.4f} ms")
@@ -3235,6 +3722,9 @@ def main() -> int:
                                "B2": b2["launches"][k["name"]],
                                "B3": b3_launches[k["name"]],
                                "B4": b4["launches"][k["name"]]}
+        k["shard_launches"] = {"S1": s1_launches[k["name"]],
+                               "S2": s2_launches[k["name"]],
+                               "S3": s3_launches[k["name"]]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

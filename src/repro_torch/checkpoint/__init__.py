@@ -15,6 +15,11 @@ package restores in the other bitwise:
   leaf is written whole, so a checkpoint restores onto any decomposition
   (the elastic legs re-shape a shrunken world over it).  A checkpoint is
   written into ``step_%010d.tmp`` and published by one atomic rename.
+  A placed leaf (:class:`~repro_torch.runtime.sharding.Placed`, a state
+  sharded over a logical mesh) is gathered first, so the files are the
+  same whatever mesh wrote them, and ``restore_checkpoint(...,
+  shardings=)`` places the restored tree over another mesh, as the
+  reference's does.
 
 * **Asynchronous saves** (the paper's external-events pattern, §4.3/§6.2):
   :meth:`AsyncCheckpointer.save` enqueues the device-to-host copy of every
@@ -45,6 +50,7 @@ import torch
 
 from ..core import TaskRuntime, tac
 from ..core.mesh import resolve_device
+from ..runtime.sharding import Placed, place
 
 _MANIFEST = "manifest.json"
 
@@ -94,7 +100,10 @@ def _ckpt_dir(base: str, step: int) -> str:
 def _host_copy(leaf):
     """A host snapshot of one leaf: a CUDA tensor is copied into pinned
     memory on the current stream (not waited for); a CPU tensor or an
-    array is copied now, so later in-place writes never reach the file."""
+    array is copied now, so later in-place writes never reach the file;
+    a placed leaf is gathered on the host."""
+    if isinstance(leaf, Placed):
+        return leaf.gather(device="cpu")
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
         if leaf.is_cuda:
@@ -108,6 +117,8 @@ def _host_copy(leaf):
 
 def _as_array(leaf) -> Tuple[np.ndarray, str]:
     """The array a leaf is stored as, and its dtype name."""
+    if isinstance(leaf, Placed):
+        leaf = leaf.gather(device="cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -153,14 +164,19 @@ def latest_step(base: str) -> Optional[int]:
 
 
 def restore_checkpoint(base: str, abstract_state: Any, device=None,
-                       step: Optional[int] = None) -> Tuple[Any, int]:
+                       step: Optional[int] = None, *,
+                       shardings: Any = None) -> Tuple[Any, int]:
     """Restore onto any decomposition: ``abstract_state`` gives the tree
     and each leaf's shape (tensors, arrays or anything with ``.shape``).
 
     With ``device`` (a ``torch.device`` or its name) every leaf comes back
     as a tensor there; without it, a leaf whose template is a tensor comes
     back as a CPU tensor and any other leaf as a host array (a
-    ``bfloat16`` leaf always as a tensor: numpy has no such dtype)."""
+    ``bfloat16`` leaf always as a tensor: numpy has no such dtype).  With
+    ``shardings`` (a tree of ``runtime.sharding.NamedSharding`` shaped
+    like ``abstract_state``) every leaf comes back placed over their mesh
+    (a :class:`~repro_torch.runtime.sharding.Placed` of per-rank blocks
+    on the mesh's device), bitwise the leaf saved."""
     step = step if step is not None else latest_step(base)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {base}")
@@ -184,7 +200,10 @@ def restore_checkpoint(base: str, abstract_state: Any, device=None,
             return arr
         return t if target is None else t.to(target)
 
-    return _map_leaves(load, abstract_state), manifest["step"]
+    tree = _map_leaves(load, abstract_state)
+    if shardings is not None:
+        tree = place(tree, shardings)
+    return tree, manifest["step"]
 
 
 class AsyncCheckpointer:

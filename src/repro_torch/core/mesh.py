@@ -26,6 +26,16 @@ transfer is a plain copy.
 for the caller's stream on entry, and the caller's stream waits for all
 of them on exit, so inputs made before the call and results read after it
 need no further synchronisation.
+
+:func:`ad_all_gather`, :func:`ad_reduce_scatter` and :func:`ad_psum` are
+the collectives as autograd functions, each one node over every rank's
+value; their backward passes are the adjoint collectives (``all_gather``
+and ``reduce_scatter`` are each other's, ``psum``'s is ``psum``).
+Autograd runs a node's backward on the stream that was current when its
+forward ran, after that stream has waited for every incoming gradient: the
+backward therefore makes the rank streams wait for it before its
+collective and makes it wait for them after (:meth:`LogicalMesh.fork`,
+:meth:`LogicalMesh.join`), so the gradients it returns are ready on it.
 """
 
 from __future__ import annotations
@@ -39,7 +49,8 @@ import torch
 
 Axes = Union[str, Sequence[str]]
 
-__all__ = ["LogicalMesh", "resolve_device", "Token"]
+__all__ = ["LogicalMesh", "resolve_device", "Token", "ad_all_gather",
+           "ad_reduce_scatter", "ad_psum"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -95,6 +106,8 @@ class LogicalMesh:
             if self.device.type == "cuda" else None)
         self.ppermute_calls = [0] * self.size
         self.psum_calls = [0] * self.size
+        self.reduce_scatter_calls = [0] * self.size
+        self.all_gather_calls = [0] * self.size
         self.token_waits = [0] * self.size
         self._depth = threading.local()
 
@@ -105,6 +118,8 @@ class LogicalMesh:
     def reset_counts(self) -> None:
         self.ppermute_calls = [0] * self.size
         self.psum_calls = [0] * self.size
+        self.reduce_scatter_calls = [0] * self.size
+        self.all_gather_calls = [0] * self.size
         self.token_waits = [0] * self.size
 
     # -- axes ----------------------------------------------------------------
@@ -155,6 +170,20 @@ class LogicalMesh:
             return contextlib.nullcontext()
         return torch.cuda.stream(self.streams[rank])
 
+    def fork(self) -> None:
+        """Every rank's stream waits for the caller's (current) stream."""
+        if self.streams is not None:
+            caller = torch.cuda.current_stream(self.device)
+            for s in self.streams:
+                s.wait_stream(caller)
+
+    def join(self) -> None:
+        """The caller's (current) stream waits for every rank's stream."""
+        if self.streams is not None:
+            caller = torch.cuda.current_stream(self.device)
+            for s in self.streams:
+                caller.wait_stream(s)
+
     @contextlib.contextmanager
     def region(self) -> Iterator["LogicalMesh"]:
         """An SPMD call: rank streams start after the caller's stream and
@@ -174,15 +203,18 @@ class LogicalMesh:
                 for s in self.streams:
                     caller.wait_stream(s)
 
-    def _transfer(self, x: torch.Tensor, src: int, dst: int) -> torch.Tensor:
-        """A copy of rank ``src``'s ``x`` made on rank ``dst``'s stream."""
+    def _transfer(self, x: torch.Tensor, src: int, dst: int,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A copy of rank ``src``'s ``x`` made on rank ``dst``'s stream,
+        into ``out`` (a tensor or view of rank ``dst``'s) when given."""
         if self.streams is None:
-            return x.clone()
+            return x.clone() if out is None else out.copy_(x)
         s_src, s_dst = self.streams[src], self.streams[dst]
         if src != dst:
             s_dst.wait_event(s_src.record_event())
         with torch.cuda.stream(s_dst):
-            y = torch.empty_like(x, memory_format=torch.contiguous_format)
+            y = torch.empty_like(x, memory_format=torch.contiguous_format) \
+                if out is None else out
             y.copy_(x)
         if src != dst:
             x.record_stream(s_dst)
@@ -240,17 +272,59 @@ class LogicalMesh:
             self.psum_calls[r] += 1
         return out
 
-    def all_gather(self, xs: Sequence[torch.Tensor], axis: Axes
-                   ) -> List[torch.Tensor]:
-        """``lax.all_gather``: every rank gets its group's values stacked
-        along a new leading dimension, in axis order."""
+    def all_gather(self, xs: Sequence[torch.Tensor], axis: Axes,
+                   dim: int = 0, tiled: bool = False) -> List[torch.Tensor]:
+        """``lax.all_gather(x, axis, axis=dim, tiled=tiled)``: every rank
+        gets its group's values in axis order, stacked along a new
+        dimension ``dim``, or with ``tiled`` concatenated along ``dim``
+        (each value copied once, into its place)."""
         self._check_values(xs, "all_gather")
         out: List[Optional[torch.Tensor]] = [None] * self.size
         for g in self.groups(axis):
             for r in g:
-                parts = [self._transfer(xs[q], q, r) for q in g]
+                x = xs[r]
+                shape = list(x.shape)
+                if tiled:
+                    shape[dim] *= len(g)
+                else:
+                    shape.insert(dim, len(g))
                 with self.on(r):
-                    out[r] = torch.stack(parts)
+                    y = torch.empty(shape, dtype=x.dtype, device=x.device)
+                for i, q in enumerate(g):
+                    part = y.narrow(dim, i * x.shape[dim], x.shape[dim]) \
+                        if tiled else y.select(dim, i)
+                    self._transfer(xs[q], q, r, out=part)
+                out[r] = y
+            for r in g:
+                self.all_gather_calls[r] += 1
+        return out
+
+    def reduce_scatter(self, xs: Sequence[torch.Tensor], axis: Axes,
+                       dim: int = 0) -> List[torch.Tensor]:
+        """``lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
+        ``dim`` is cut into one block per group member, and the member at
+        axis index ``i`` gets the sum of block ``i`` of every member's
+        value, summed in axis order on the member itself, as
+        :meth:`psum` sums."""
+        self._check_values(xs, "reduce_scatter")
+        n = self.axis_size(axis)
+        for x in xs:
+            if x.dim() <= dim or x.shape[dim] % n:
+                raise ValueError(f"reduce_scatter: dimension {dim} of "
+                                 f"{tuple(x.shape)} does not split over "
+                                 f"{n} ranks")
+        out: List[Optional[torch.Tensor]] = [None] * self.size
+        for g in self.groups(axis):
+            for i, r in enumerate(g):
+                k = xs[r].shape[dim] // n
+                total = None
+                for q in g:
+                    got = self._transfer(xs[q].narrow(dim, i * k, k), q, r)
+                    with self.on(r):
+                        total = got if total is None else total.add_(got)
+                out[r] = total
+            for r in g:
+                self.reduce_scatter_calls[r] += 1
         return out
 
     def all_to_all(self, xs: Sequence[torch.Tensor], axis: Axes
@@ -288,3 +362,103 @@ class LogicalMesh:
             if self.streams is not None:
                 for ev in token.events:
                     self.streams[r].wait_event(ev)
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives (one autograd node over every rank's value)
+# ---------------------------------------------------------------------------
+def _zeros_for(mesh: LogicalMesh, grads, like) -> List[torch.Tensor]:
+    """Each rank's gradient, zeros where autograd gave none."""
+    out = []
+    for r, (g, (shape, dtype)) in enumerate(zip(grads, like)):
+        if g is None:
+            with mesh.on(r):
+                g = torch.zeros(shape, dtype=dtype, device=mesh.device)
+        out.append(g)
+    return out
+
+
+def _shapes(xs) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
+    return [(tuple(x.shape), x.dtype) for x in xs]
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *xs):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ys = mesh.all_gather(list(xs), axis, dim=dim, tiled=True)
+        ctx.like = _shapes(ys)
+        return tuple(ys)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        mesh = ctx.mesh
+        mesh.fork()
+        out = mesh.reduce_scatter(_zeros_for(mesh, gs, ctx.like), ctx.axis,
+                                  ctx.dim)
+        mesh.join()
+        return (None, None, None) + tuple(out)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *xs):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ys = mesh.reduce_scatter(list(xs), axis, dim=dim)
+        ctx.like = _shapes(ys)
+        return tuple(ys)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        mesh = ctx.mesh
+        mesh.fork()
+        out = mesh.all_gather(_zeros_for(mesh, gs, ctx.like), ctx.axis,
+                              dim=ctx.dim, tiled=True)
+        mesh.join()
+        return (None, None, None) + tuple(out)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *xs):
+        ctx.mesh, ctx.axis = mesh, axis
+        ys = mesh.psum(list(xs), axis)
+        ctx.like = _shapes(ys)
+        return tuple(ys)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gs):
+        mesh = ctx.mesh
+        mesh.fork()
+        out = mesh.psum(_zeros_for(mesh, gs, ctx.like), ctx.axis)
+        mesh.join()
+        return (None, None) + tuple(out)
+
+
+def ad_all_gather(mesh: LogicalMesh, xs: Sequence[torch.Tensor], axis: Axes,
+                  dim: int = 0) -> List[torch.Tensor]:
+    """Tiled :meth:`LogicalMesh.all_gather` along ``dim`` that autograd
+    differentiates: the backward reduce-scatters the gradients along
+    ``dim`` (each rank's block summed over the group)."""
+    return list(_AllGather.apply(mesh, axis, dim, *xs))
+
+
+def ad_reduce_scatter(mesh: LogicalMesh, xs: Sequence[torch.Tensor],
+                      axis: Axes, dim: int = 0) -> List[torch.Tensor]:
+    """:meth:`LogicalMesh.reduce_scatter` that autograd differentiates:
+    the backward all-gathers the gradients along ``dim``."""
+    return list(_ReduceScatter.apply(mesh, axis, dim, *xs))
+
+
+def ad_psum(mesh: LogicalMesh, xs: Sequence[torch.Tensor], axis: Axes
+            ) -> List[torch.Tensor]:
+    """:meth:`LogicalMesh.psum` that autograd differentiates.  Its
+    backward is its adjoint, a ``psum`` of the gradients: the port's
+    sharded steps count every loss term on one rank only, so a value
+    replicated by a ``psum`` is differentiated once per copy and the
+    copies' gradients add up.  (Megatron counts the loss on every model
+    rank instead and makes this backward the identity.)"""
+    return list(_Psum.apply(mesh, axis, *xs))

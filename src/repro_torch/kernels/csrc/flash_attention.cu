@@ -5,7 +5,7 @@
 // softmax, GQA (query head h reads kv head h / rep), causal and
 // sliding-window masks, fp32 accumulation, output in the input dtype.
 //   q (B, S, H, D), k and v (B, T, Hkv, D), o (B, S, H, D), contiguous,
-//   fp32 or bf16; D in {16, 32, 64, 80, 128}; any S and T.
+//   fp32 or bf16; D in {8, 16, 32, 64, 80, 128}; any S and T.
 // Per key tile, for each query row: s = (q . k) * 1/sqrt(D) in fp32, masked
 // to NEG_INF; m_new = max(m, max s); p = exp(s - m_new), 0 where masked;
 // alpha = 0 where m is still NEG_INF, else exp(m - m_new); l = l * alpha +
@@ -80,7 +80,13 @@
 //     in a denormal path that cost more than the products).  A stage is
 //     released after the product that reads its V has completed.
 // fp32: the FMA pipes, which keeps fp32 inputs exact to fp32 (TF32 would
-// not hold the fp32 tolerance); not the served dtype.
+// not hold the fp32 tolerance); not the served dtype.  D = 8 (below
+// wgmma's k-step of 16) takes this instance in both dtypes: q, k and v are
+// staged zero-padded to 16 columns in shared memory (a zero column adds
+// nothing to q . k, and the padded output columns are never stored), the
+// scale stays 1/sqrt(8), and bf16 inputs are widened to fp32 as they are
+// staged, so P is not rounded and only summation order differs from the
+// plain version.
 //   * One block of 128 threads owns 64 query rows.  Both products are
 //     register-tiled like a GEMM: each thread owns 8 rows x 4 score columns
 //     of the (64 x 64) score tile and 8 rows x D/16 output columns, so
@@ -125,7 +131,13 @@ constexpr int kPad = 4;         // keeps transposed rows 16-byte aligned
 constexpr int kRowStride = kRows + kPad;
 constexpr int kKeyStride = kBK + kPad;
 __device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 // N consecutive floats of shared memory at p (aligned to N's vector width).
 template <int N>
@@ -155,7 +167,8 @@ constexpr int smem_floats(int D) {
 // Block (x, y): x walks the position tiles, last first; y = ((b * Hkv + g)
 // * n_hchunks + hc).  Row i of the block is position p0 + i / hpb of query
 // head g * rep + hc * hpb + i % hpb, valid for i < hpb * ppb and pos < S.
-template <typename T, int D>
+// The tensors' head dim is DL <= D; columns [DL, D) are staged as zeros.
+template <typename T, int D, int DL = D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
@@ -190,8 +203,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int i = idx / D, d = idx % D;
     const int pos = p0 + i / hpb;
     float x = 0.0f;
-    if (i < n_rows && pos < S)
-      x = to_float(q[((long long)(b * S + pos) * H + h0 + i % hpb) * D + d]);
+    if (i < n_rows && pos < S && d < DL)
+      x = to_float(q[((long long)(b * S + pos) * H + h0 + i % hpb) * DL + d]);
     Qt[d * kRowStride + i] = x;
   }
 
@@ -221,8 +234,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kk = idx / D, d = idx % D;
       const int key = k0 + kk;
       float kx = 0.0f, vx = 0.0f;
-      if (key < Tk) {
-        const long long off = ((long long)(b * Tk + key) * Hkv + g) * D + d;
+      if (key < Tk && d < DL) {
+        const long long off = ((long long)(b * Tk + key) * Hkv + g) * DL + d;
         kx = to_float(k[off]);
         vx = to_float(v[off]);
       }
@@ -301,15 +314,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (pos[i] < 0) continue;
     const int r = r0 + i;
     const float li = l[i] == 0.0f ? 1.0f : l[i];
-    T* dst = o + ((long long)(b * S + pos[i]) * H + h0 + r % hpb) * D + d0;
+    T* dst = o + ((long long)(b * S + pos[i]) * H + h0 + r % hpb) * DL + d0;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) store(dst + j, acc[i][j] / li);
+    for (int j = 0; j < DC; ++j)
+      if (d0 + j < DL) store(dst + j, acc[i][j] / li);
     if (lse != nullptr && cg == 0)    // the 16 threads of a row agree
       lse[(long long)(b * H + h0 + r % hpb) * S + pos[i]] = m[i] + logf(li);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DL = D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int S, int Tk, int H, int Hkv, int causal, int window,
            cudaStream_t stream) {
@@ -321,14 +335,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const int n_hchunks = rep / hpb;
   const int smem = smem_floats(D) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<T, D, DL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + ppb - 1) / ppb, B * Hkv * n_hchunks);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, D, DL><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, S, Tk, H, Hkv, hpb,
-      ppb, n_hchunks, causal, window, 1.0f / sqrtf(static_cast<float>(D)));
+      ppb, n_hchunks, causal, window, 1.0f / sqrtf(static_cast<float>(DL)));
   return cudaGetLastError();
 }
 
@@ -737,6 +751,19 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (B <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 8) {                 // the FMA instance, padded to 16 columns
+    switch (dtype) {
+      case kF32:
+        return f32::launch<float, 16, 8>(q, k, v, o, static_cast<float*>(lse),
+                                         B, S, Tk, H, Hkv, causal, window, s);
+      case kBF16:
+        return f32::launch<__nv_bfloat16, 16, 8>(
+            q, k, v, o, static_cast<float*>(lse), B, S, Tk, H, Hkv, causal,
+            window, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
   switch (dtype) {
     case kF32:
       return with_head_dim(D, [&](auto d) {

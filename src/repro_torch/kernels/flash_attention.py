@@ -10,7 +10,9 @@ the kernel's launches (plain-version calls count nothing).
 Unlike the Pallas wrapper, any S and T are taken: ``S % block_q == 0`` is
 a TPU tiling limit, and the kernel masks its ragged tiles.  bf16 runs on
 the tensor cores (``wgmma``, with q, k and v loaded by TMA, so each must
-start on a 16-byte boundary); fp32 on the FMA pipes.  With
+start on a 16-byte boundary); fp32 on the FMA pipes.  Head dim 8, below
+``wgmma``'s k-step, takes the FMA instance in both dtypes, q, k and v
+zero-padded to 16 columns in shared memory.  With
 ``return_lse=True`` the kernel also writes each query row's log-sum-exp,
 what the attention backward (``ref.attention_bwd``) recomputes the
 probabilities from; without it the kernel is given a null pointer and does
@@ -27,7 +29,7 @@ import torch
 from . import build, ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128)
 _count_lock = threading.Lock()
 
 

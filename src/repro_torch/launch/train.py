@@ -1,15 +1,18 @@
 """End-to-end training driver — the port of ``repro/launch/train.py``.
 
 Wires together every substrate: config registry, synthetic data with
-async prefetch (host task runtime), the train step (auto mode on one rank,
-or manual data parallelism with an explicit grad-sync schedule over
-``--mesh Nx1`` logical ranks), asynchronous checkpointing bound to
-external events, preemption handling, and step-granular restart.
-Checkpoints are written in the reference's layout, so either package
-restores the other's.  Weights are random, from ``--seed``.  It runs on
+async prefetch (host task runtime), the train step (auto mode: on one
+rank, or with ``--mesh NxM`` sharded over N x M logical ranks by the rule
+table, FSDP over the data axis and TP/SP/EP over the model axis; or manual
+data parallelism with an explicit grad-sync schedule), asynchronous
+checkpointing bound to external events, preemption handling, and
+step-granular restart.  Checkpoints are written in the reference's layout
+(a sharded state is gathered first), so either package restores the
+other's, onto any mesh.  Weights are random, from ``--seed``.  It runs on
 the CUDA device unless ``--device`` names another.  Each log line gives
 loss, lr and grad norm, as the reference's does, then seconds per step,
-tokens per second and the peak of allocated device memory::
+tokens per second, the peak of allocated device memory and the train
+state's GiB on each rank::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --scale full --steps 3 --batch 1 --seq 4096 --log-every 1
@@ -18,6 +21,8 @@ tokens per second and the peak of allocated device memory::
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch olmoe-1b-7b --scale smoke --steps 5 --grad-sync bucketed \\
       --mesh 4x1
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --scale smoke --steps 5 --batch 8 --seq 64 --mesh 2x2
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from ..core.mesh import resolve_device
 from ..data import Prefetcher, SyntheticLMData, to_device
 from ..models import model
 from ..runtime import steps
-from ..runtime.sharding import ShardingPolicy
+from ..core.overlap import tree_flatten
+from ..runtime.sharding import ShardingPolicy, placed_bytes
 from . import mesh as meshlib
 
 
@@ -75,7 +81,8 @@ def _parser() -> argparse.ArgumentParser:
 def run(argv=None) -> Dict[str, Any]:
     """Train as the CLI does; returns what it logged: ``log`` (one dict a
     log line: step, loss, lr, grad_norm, s_per_step, tokens_per_s,
-    peak_gib), ``n_params``, ``device`` and ``steps``."""
+    peak_gib), ``n_params``, ``device``, ``steps`` and ``state_gib`` (the
+    train state's GiB on each rank)."""
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
@@ -94,8 +101,17 @@ def run(argv=None) -> Dict[str, Any]:
         fsdp=not manual, tp=not manual, sp=not manual, remat=args.remat,
         grad_sync=args.grad_sync)
 
-    state = steps.init_train_state(cfg, opt_cfg, args.seed, device=device)
-    n_params = model.param_count(state.params)
+    sharded = not manual and mesh.size > 1
+    if manual:
+        step_fn = steps.build_train_step_manual(cfg, mesh, policy,
+                                                opt_cfg)(None, None)
+    else:
+        step_fn, shardings = steps.build_train_step(cfg, mesh, policy,
+                                                    opt_cfg, donate=False)
+    state = steps.init_train_state(
+        cfg, opt_cfg, args.seed, device=device,
+        shardings=shardings if sharded else None)
+    n_params = model.param_count(steps.abstract_params(cfg))
     print(f"[train] params: {n_params/1e6:.2f}M")
 
     data = SyntheticLMData(cfg, batch=args.batch, seq=args.seq,
@@ -106,18 +122,17 @@ def run(argv=None) -> Dict[str, Any]:
         saver = ckpt.AsyncCheckpointer(args.ckpt_dir)
         last = ckpt.latest_step(args.ckpt_dir)
         if last is not None:
+            aref = steps.abstract_reference_state(cfg)
             ref_state, start_step = ckpt.restore_checkpoint(
-                args.ckpt_dir, steps.abstract_reference_state(cfg))
+                args.ckpt_dir, aref, shardings=steps.state_shardings(
+                    mesh, aref, policy) if sharded else None)
             state = steps.state_from_reference(cfg, ref_state,
                                                device=device)
             print(f"[train] restored checkpoint at step {start_step}")
+    state_gib = [b / 2**30 for b in _state_bytes(state, mesh, sharded)]
+    print(f"[train] train state per rank: "
+          f"{', '.join(f'{g:.4g}' for g in state_gib)} GiB")
 
-    if manual:
-        make = steps.build_train_step_manual(cfg, mesh, policy, opt_cfg)
-        step_fn = make(None, None)
-    else:
-        step_fn, _ = steps.build_train_step(cfg, mesh, policy, opt_cfg,
-                                            donate=False)
     prefetch = Prefetcher(data, start_step=start_step,
                           device_put_fn=lambda b: to_device(b, device))
     previous = None
@@ -158,7 +173,7 @@ def run(argv=None) -> Dict[str, Any]:
                       f"loss={loss:.4f} lr={metrics['lr']:.2e} "
                       f"gnorm={gnorm:.3f} ({now - t0:.1f}s; "
                       f"{per:.3f} s/step, {tokens / per:.1f} tokens/s"
-                      f"{mem})")
+                      f"{mem}; state {max(state_gib):.4g} GiB a rank)")
             if saver is not None and (cur_step + 1) % args.ckpt_every == 0:
                 saver.save(steps.state_to_reference(state),
                            cur_step + 1)  # async — does not block
@@ -180,7 +195,18 @@ def run(argv=None) -> Dict[str, Any]:
     elif losses:
         print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     return {"log": log, "n_params": n_params, "device": str(device),
-            "steps": args.steps - start_step}
+            "steps": args.steps - start_step, "state_gib": state_gib}
+
+
+def _state_bytes(state, mesh, sharded: bool):
+    """The train state's bytes on each rank: its blocks when sharded,
+    else a whole replica on every rank."""
+    if sharded:
+        return placed_bytes((state.params, state.opt), mesh)
+    leaves = list(state.params.parameters()) + [
+        t for t in tree_flatten((state.opt.m, state.opt.v,
+                                 state.opt.master))[0]]
+    return [sum(t.numel() * t.element_size() for t in leaves)] * mesh.size
 
 
 def main(argv=None) -> int:

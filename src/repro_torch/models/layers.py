@@ -113,7 +113,10 @@ class Attention(nn.Module):
         writes at ``cache_index`` and then attends over the whole cache."""
         cfg = self.cfg
         B, S, _ = x.shape
-        dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        # the heads this block holds: all of them, or a tensor-parallel
+        # rank's (wq, wk, wv split on columns, wo on rows)
+        dh = cfg.head_dim
+        H, Hkv = self.wq.shape[1] // dh, self.wk.shape[1] // dh
         q = rope_apply((x @ self.wq).view(B, S, H, dh), angles)
         k = rope_apply((x @ self.wk).view(B, S, Hkv, dh), angles)
         v = (x @ self.wv).view(B, S, Hkv, dh)
@@ -201,29 +204,40 @@ class MoE(nn.Module):
         cap = max(8, -(-cap // 8) * 8)
         return min(cap, Tk)
 
-    def route(self, x: torch.Tensor
+    def route(self, x: torch.Tensor, router: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Router softmax and top-k: (gates (G, Tg, k) fp32 renormalised,
-        expert ids (G, Tg, k) int64, aux loss) for x (G, Tg, d)."""
-        E, k = self.cfg.n_experts, self.cfg.top_k
-        probs = torch.softmax(x.float() @ self.router, dim=-1)
+        expert ids (G, Tg, k) int64, probabilities (G, Tg, E) fp32) for x
+        (G, Tg, d), with this block's router or ``router``."""
+        k = self.cfg.top_k
+        router = self.router if router is None else router
+        probs = torch.softmax(x.float() @ router, dim=-1)
         top = torch.sort(probs, dim=-1, descending=True, stable=True)
         gate_vals, eidx = top.values[..., :k], top.indices[..., :k]
         gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
-        me = probs.mean(dim=(0, 1))
-        ce = F.one_hot(eidx[..., 0], E).float().mean(dim=(0, 1))
-        aux = E * (me * ce).sum()
-        return gate_vals, eidx, aux
+        return gate_vals, eidx, probs
 
-    def forward(self, x: torch.Tensor, *, impl: Optional[str] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (y (B, S, d), aux loss fp32 scalar)."""
+    def aux_parts(self, probs: torch.Tensor, eidx: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The load-balancing loss's two sums over (G, Tg): the router
+        probabilities and the one-hot top-1 choices, each (E,) fp32.
+        ``aux = E · Σ_e (probs_sum / n) · (top1_sum / n)`` for n = G · Tg
+        (the sharded steps sum the parts over the data ranks first)."""
+        E = self.cfg.n_experts
+        return (probs.sum(dim=(0, 1)),
+                F.one_hot(eidx[..., 0], E).float().sum(dim=(0, 1)))
+
+    def dispatch(self, x: torch.Tensor, router: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Tuple, torch.Tensor, torch.Tensor]:
+        """Routing and the gather into the expert layout: (xe (E, G·cap, d)
+        contiguous, the plan :meth:`combine` takes, probs, expert ids) for
+        x (B, S, d)."""
         cfg = self.cfg
         B, S, d = x.shape
         E, k = cfg.n_experts, cfg.top_k
         G, Tg, Tk = B, S, S * k
         xt = x.reshape(G, Tg, d)
-        gate_vals, eidx, aux = self.route(xt)
+        gate_vals, eidx, probs = self.route(xt, router)
         cap = self.capacity(Tg)
 
         # dispatch: expert e's slot c holds sorted row starts[e] + c
@@ -241,13 +255,30 @@ class MoE(nn.Module):
         src_tok = torch.gather(tok_of, 1, slot_rows.reshape(G, E * cap))
         xe = torch.gather(xt, 1, src_tok[..., None].expand(G, E * cap, d))
         xe = xe * slot_valid.reshape(G, E * cap, 1).to(x.dtype)
-
-        # the expert products on (E, G·cap, ·)
         xe = xe.reshape(G, E, cap, d).transpose(0, 1).reshape(E, G * cap, d)
-        xe = xe.contiguous()
-        h = _silu(ops.moe_gmm(xe, self.wg, impl=impl)) \
-            * ops.moe_gmm(xe, self.wu, impl=impl)
-        ye = ops.moe_gmm(h, self.wd, impl=impl)                  # (E, G·cap, d)
+        plan = (order, sorted_e, starts, gate_vals, cap)
+        return xe.contiguous(), plan, probs, eidx
+
+    @staticmethod
+    def experts(xe: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                wd: torch.Tensor, impl: Optional[str] = None
+                ) -> torch.Tensor:
+        """The expert products on the (E, G·cap, ·) layout through
+        ``ops.moe_gmm``: ``(silu(xe @ wg) * (xe @ wu)) @ wd``, for the
+        experts (and ffn columns) that ``wg``, ``wu``, ``wd`` hold."""
+        h = _silu(ops.moe_gmm(xe, wg, impl=impl)) \
+            * ops.moe_gmm(xe, wu, impl=impl)
+        return ops.moe_gmm(h, wd, impl=impl)             # (E, G·cap, d)
+
+    def combine(self, ye: torch.Tensor, plan: Tuple, x: torch.Tensor
+                ) -> torch.Tensor:
+        """The return path: each token's k expert rows, weighted by its
+        gates and summed in fp32, as y (B, S, d) in x's dtype."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        E, k = cfg.n_experts, cfg.top_k
+        G, Tg, Tk = B, S, S * k
+        order, sorted_e, starts, gate_vals, cap = plan
         ye = ye.reshape(E, G, cap, d).transpose(0, 1).reshape(G, E * cap, d)
 
         # return path: row r (sorted) sits in slot sorted_e[r]·cap + (r -
@@ -263,7 +294,17 @@ class MoE(nn.Module):
         contrib = torch.gather(ye, 1, row_pos[..., None].expand(G, Tk, d))
         wgt = (gate_vals.reshape(G, Tk) * row_keep.float()).to(x.dtype)
         y = (contrib * wgt[..., None]).reshape(G, Tg, k, d).float().sum(2)
-        return y.to(x.dtype).reshape(B, S, d), aux
+        return y.to(x.dtype).reshape(B, S, d)
+
+    def forward(self, x: torch.Tensor, *, impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (y (B, S, d), aux loss fp32 scalar)."""
+        xe, plan, probs, eidx = self.dispatch(x)
+        ye = self.experts(xe, self.wg, self.wu, self.wd, impl)
+        p_sum, c_sum = self.aux_parts(probs, eidx)
+        n = probs.shape[0] * probs.shape[1]
+        aux = self.cfg.n_experts * ((p_sum / n) * (c_sum / n)).sum()
+        return self.combine(ye, plan, x), aux
 
 
 # ---------------------------------------------------------------------------

@@ -76,19 +76,23 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _run_unit(unit, x, remat: Optional[str], **kw):
-    """``unit(x, **kw)``, its activations recomputed in the backward under
+def checkpointed(fn, remat: Optional[str], *xs):
+    """``fn(*xs)``, its activations recomputed in the backward under
     ``remat`` (``torch.utils.checkpoint``, non-reentrant)."""
     if remat is None:
-        return unit(x, **kw)
+        return fn(*xs)
     from torch.utils.checkpoint import (checkpoint,
                                         create_selective_checkpoint_contexts)
     extra = {}
     if remat == "dots":
         extra["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
-    return checkpoint(functools.partial(unit, **kw), x, use_reentrant=False,
-                      **extra)
+    return checkpoint(fn, *xs, use_reentrant=False, **extra)
+
+
+def _run_unit(unit, x, remat: Optional[str], **kw):
+    """``unit(x, **kw)`` under ``remat`` (:func:`checkpointed`)."""
+    return checkpointed(functools.partial(unit, **kw), remat, x)
 
 
 def _block_names(cfg: ModelConfig):
@@ -197,13 +201,10 @@ class Model(nn.Module):
         return self.final_norm.scale.device
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.final_norm(x)
         head = getattr(self, "lm_head", None)
-        logits = x @ head if head is not None else x @ self.embed.T
-        if self.cfg.logit_softcap > 0:
-            cap = self.cfg.logit_softcap
-            logits = torch.tanh(logits / cap) * cap
-        return logits
+        return project_out(self.cfg, self.final_norm(x),
+                           head if head is not None else self.embed,
+                           tied=head is None)
 
     def forward(self, batch: Mapping[str, torch.Tensor], *,
                 mode: str = "train", cache: Optional[Cache] = None,
@@ -221,17 +222,8 @@ class Model(nn.Module):
             raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
         if mode == "decode" and (cache is None or cache_index is None):
             raise ValueError("decode needs a cache and a cache_index")
-        if cfg.frontend == "audio":
-            x = batch["embeds"].to(cfg.activation_dtype)
-            B, S = x.shape[:2]
-        else:
-            tokens = batch["tokens"]
-            B, S = tokens.shape
-            x = self.embed[tokens]
-            if cfg.frontend == "vlm" and mode != "decode" \
-                    and "patch_embeds" in batch:
-                pe = batch["patch_embeds"].to(x.dtype)
-                x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        x = embed_inputs(cfg, getattr(self, "embed", None), batch, mode)
+        B, S = x.shape[:2]
         if mode == "decode":
             positions = torch.full((B, S), int(cache_index), device=x.device)
         else:
@@ -279,15 +271,49 @@ def apply(model: Model, batch: Mapping[str, torch.Tensor], *,
                  mlstm_impl=mlstm_impl, moe_impl=moe_impl, remat=remat)
 
 
+def embed_inputs(cfg: ModelConfig, table: Optional[torch.Tensor],
+                 batch: Mapping[str, torch.Tensor], mode: str
+                 ) -> torch.Tensor:
+    """The residual stream's input (B, S, d): the audio frontend's
+    ``embeds``, else ``table``'s rows for the tokens, with a VLM's patch
+    embeddings in place of the first positions outside decode.  (The
+    sharded steps call it on each rank's rows.)"""
+    if cfg.frontend == "audio":
+        return batch["embeds"].to(cfg.activation_dtype)
+    x = table[batch["tokens"]]
+    if cfg.frontend == "vlm" and mode != "decode" \
+            and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
+
+
+def project_out(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor, *,
+                tied: bool) -> torch.Tensor:
+    """The logits of the normed ``x``: ``x @ w`` for an LM head (d, V),
+    ``x @ w.T`` for the tied embedding (V, d), soft-capped where
+    ``cfg.logit_softcap`` is set."""
+    logits = x @ w.T if tied else x @ w
+    if cfg.logit_softcap > 0:
+        cap = cfg.logit_softcap
+        logits = torch.tanh(logits / cap) * cap
+    return logits
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's cross-entropy in fp32: log-sum-exp of the fp32
+    logits minus the label's logit.  logits (B, S, V); labels (B, S)."""
+    lf = logits.float()
+    return torch.logsumexp(lf, dim=-1) - torch.gather(
+        lf, -1, labels[..., None].long())[..., 0]
+
+
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross-entropy in fp32 (``repro/models/model.py``
-    ``lm_loss``): log-sum-exp of the fp32 logits minus the label's logit,
-    averaged over the positions, or over the ``mask``-weighted positions.
-    logits (B, S, V); labels (B, S)."""
-    lf = logits.float()
-    nll = torch.logsumexp(lf, dim=-1) - torch.gather(
-        lf, -1, labels[..., None].long())[..., 0]
+    ``lm_loss``): :func:`token_nll` averaged over the positions, or over
+    the ``mask``-weighted positions.  logits (B, S, V); labels (B, S)."""
+    nll = token_nll(logits, labels)
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -29,7 +29,7 @@ import torch
 from ..core.overlap import tree_flatten, tree_unflatten
 
 __all__ = ["OptimConfig", "OptState", "lr_at", "init", "global_norm",
-           "update"]
+           "update", "decays"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +100,12 @@ def _decays(tree, extra: int = 0, out: Optional[List[bool]] = None
     return out
 
 
+def decays(tree) -> List[bool]:
+    """Per leaf of a parameter tree, in tree order: whether AdamW decays
+    it (``_decays``; a leaf only needs ``dim()``)."""
+    return _decays(tree)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves, in tree order, of each leaf's sum of
     fp32 squares: a 0-d fp32 tensor on the leaves' device."""
@@ -111,7 +117,9 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(cfg: OptimConfig, grads, state: OptState, params
+def update(cfg: OptimConfig, grads, state: OptState, params, *,
+           grad_norm: Optional[torch.Tensor] = None,
+           decays: Optional[List[bool]] = None
            ) -> Tuple[Any, OptState, Dict[str, Any]]:
     """One AdamW step: clip by global norm, fp32 moments, bias correction,
     decay on leaves the reference sees with ``ndim >= 2`` only (see the
@@ -119,10 +127,14 @@ def update(cfg: OptimConfig, grads, state: OptState, params
     each parameter's dtype.  ``grads`` has the parameters' structure (any
     floating dtype).  Updates ``state``'s trees and ``params`` in place and
     returns ``(params, new state, metrics)``: ``lr`` (float) and
-    ``grad_norm`` (0-d fp32 tensor on the device, not read back)."""
+    ``grad_norm`` (0-d fp32 tensor on the device, not read back).
+
+    A sharded step passes one rank's blocks as the trees, the norm of the
+    whole gradient as ``grad_norm`` and each leaf's decay as ``decays``
+    (decided from the whole leaf's shape, never a block's)."""
     step = state.step + 1
     lr = lr_at(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = (torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                          max=1.0) if cfg.clip_norm else None)
     t = float(step)
@@ -135,8 +147,9 @@ def update(cfg: OptimConfig, grads, state: OptState, params
     if not len(ps) == len(gs) == len(ms) == len(vs) == len(mas):
         raise ValueError("params, grads and optimizer state differ in "
                          "structure")
-    for p, g, m, v, master, decay in zip(ps, gs, ms, vs, mas,
-                                         _decays(params)):
+    for p, g, m, v, master, decay in zip(
+            ps, gs, ms, vs, mas, _decays(params) if decays is None
+            else decays):
         g = g.float()
         if scale is not None:
             g = g * scale

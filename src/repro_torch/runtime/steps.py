@@ -2,9 +2,19 @@
 
 Two distribution modes, as in the reference:
 
-* ``auto``: one rank (:func:`build_train_step`).  The reference lets GSPMD
-  shard a jitted step over a mesh; here the step runs eagerly on the
-  mesh's one device, with gradient accumulation over
+* ``auto`` (:func:`build_train_step`): one step with the rule table's
+  placements (:func:`state_shardings`).  On a mesh of one rank the state
+  is a whole replica (a ``Model`` and its AdamW trees) and the step runs
+  eagerly on the mesh's device.  On more ranks the state is placed
+  (:func:`init_train_state` with ``shardings=``, or :func:`place_state`):
+  every leaf of the parameters and of AdamW's ``m``, ``v`` and ``master``
+  is a :class:`~repro_torch.runtime.sharding.Placed` of per-rank blocks,
+  and :class:`~repro_torch.runtime.spmd.ShardedModel` runs the forward and
+  backward with the FSDP, TP, SP and EP collectives that GSPMD inserts in
+  the reference; gradients arrive reduce-scattered onto the blocks,
+  the global grad norm is the ``psum`` of every rank's squared blocks
+  (a block replicated over an axis counted once), and AdamW runs on each
+  rank's blocks.  Both forms accumulate gradients over
   ``policy.microbatches`` (fp32 sums divided by M).
 * ``manual`` DP (:func:`build_train_step_manual`): N logical ranks on the
   mesh's data-parallel axes.  Each rank holds a whole replica of the train
@@ -15,8 +25,10 @@ Two distribution modes, as in the reference:
   takes the same optimizer step, so the replicas stay bitwise equal.
 
 The serving steps (:func:`build_prefill_step`, :func:`build_decode_step`)
-are thin wrappers over :func:`~repro_torch.models.model.apply` on the
-mesh's one rank.  :func:`abstract_params` and :func:`abstract_train_state`
+are thin wrappers over :func:`~repro_torch.models.model.apply` on a mesh
+of one rank; on more they run the sharded model on parameters placed by
+``param_shardings`` (:func:`place_params`) and decode caches placed by
+``cache_shardings``.  :func:`abstract_params` and :func:`abstract_train_state`
 give the shapes and dtypes without memory: trees of tensors on the
 ``meta`` device, the port's ``jax.eval_shape``.
 
@@ -33,7 +45,7 @@ other's.
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,13 +56,17 @@ from ..core.overlap import tree_flatten, tree_unflatten
 from ..launch.mesh import axis_size, dp_axes
 from ..models import model
 from ..models.config import ModelConfig
-from .sharding import ShardingPolicy, check_policy
+from .sharding import (P, NamedSharding, Placed, ShardingPolicy,
+                       cache_shardings, check_policy, gather, map_tree,
+                       param_shardings, place)
+from .spmd import ShardedModel
 
 __all__ = ["AUX_COEF", "TrainState", "init_train_state", "build_train_step",
            "build_train_step_manual", "abstract_params",
            "abstract_train_state", "build_prefill_step",
            "build_decode_step", "state_to_reference",
-           "state_from_reference", "abstract_reference_state"]
+           "state_from_reference", "abstract_reference_state",
+           "state_shardings", "place_state", "place_params", "gather_state"]
 
 AUX_COEF = 0.01
 GRAD_SYNC_MODES = ("fused", "bucketed", "sentinel")
@@ -62,13 +78,111 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: optim.OptimConfig,
-                     seed: int = 0, *, device=None) -> TrainState:
+                     seed: int = 0, *, device=None,
+                     shardings: Optional[TrainState] = None) -> TrainState:
     """A model with random weights from ``seed`` (``model.init``), its
-    parameters made trainable, and a fresh AdamW state."""
+    parameters made trainable, and a fresh AdamW state.  With
+    ``shardings`` (:func:`state_shardings`, as :func:`build_train_step`
+    returns them) the state is placed over their mesh: the same numbers,
+    and no whole fp32 tree is ever made (the masters are cast from the
+    placed parameters block by block)."""
+    if shardings is not None:
+        net = model.init(cfg, seed, device if device is not None
+                         else shardings.opt.step.mesh.device)
+        params = place(model.param_tree(net), shardings.params)
+        del net
+        return _opt_from_params(params)
     params = model.init(cfg, seed, device)
     params.requires_grad_(True)
     return TrainState(params=params,
                       opt=optim.init(model.param_tree(params)))
+
+
+def _leaves(tree) -> List[Any]:
+    """The leaves in ``tree_flatten``'s order (the optimizer's)."""
+    return tree_flatten(tree)[0]
+
+
+def _opt_from_params(params) -> TrainState:
+    """A placed state from placed parameters: zero moments and fp32
+    masters, block by block on each rank's stream; the parameter blocks
+    made trainable."""
+    mesh = _leaves(params)[0].sharding.mesh
+
+    def like(fn):
+        def one(_, leaf):
+            blocks = []
+            for r, b in enumerate(leaf.blocks):
+                with mesh.on(r):
+                    blocks.append(fn(b))
+            return Placed(leaf.sharding, leaf.shape, blocks)
+        return map_tree(one, params)
+
+    f32 = torch.float32
+    mesh.fork()
+    with torch.no_grad():
+        m = like(lambda b: torch.zeros(b.shape, dtype=f32, device=b.device))
+        v = like(lambda b: torch.zeros(b.shape, dtype=f32, device=b.device))
+        master = like(lambda b: b.to(f32, copy=True))
+    mesh.join()
+    for leaf in _leaves(params):
+        for b in leaf.blocks:
+            b.requires_grad_(True)
+    return TrainState(params=params, opt=optim.OptState(
+        step=torch.zeros((), dtype=torch.int32), m=m, v=v, master=master))
+
+
+def state_shardings(mesh, abstract_state: TrainState,
+                    policy: ShardingPolicy) -> TrainState:
+    """The rule table's :class:`NamedSharding` of every leaf of a train
+    state, as the reference's ``state_shardings``: the parameters by
+    ``param_shardings``, ``m``, ``v`` and ``master`` alike, ``step``
+    replicated.  ``abstract_state.params`` is a ``Model`` (the port's
+    layout, one leaf per unit repeat) or a parameter tree in either
+    layout (the reference's stacked one gets the reference's specs)."""
+    ps = param_shardings(mesh, abstract_state.params, policy)
+    return TrainState(params=ps, opt=optim.OptState(
+        step=NamedSharding(mesh, P()), m=ps, v=ps, master=ps))
+
+
+def place_state(state: TrainState, shardings: TrainState) -> TrainState:
+    """A whole train state (a ``Model`` and its AdamW trees) placed by
+    ``shardings`` (:func:`state_shardings`); the parameter blocks are
+    trainable."""
+    params = place(model.param_tree(state.params), shardings.params)
+    for leaf in _leaves(params):
+        for b in leaf.blocks:
+            b.requires_grad_(True)
+    opt = state.opt
+    return TrainState(params=params, opt=optim.OptState(
+        step=opt.step.clone(), m=place(opt.m, shardings.opt.m),
+        v=place(opt.v, shardings.opt.v),
+        master=place(opt.master, shardings.opt.master)))
+
+
+def place_params(params: model.Model, shardings) -> Dict[str, Any]:
+    """A model's parameter tree (``model.param_tree``) placed by
+    ``shardings`` (``param_shardings``): what the sharded serving steps
+    take."""
+    return place(model.param_tree(params), shardings)
+
+
+def gather_state(cfg: ModelConfig, state: TrainState, device=None
+                 ) -> TrainState:
+    """A placed train state made whole again: a ``Model`` holding the
+    gathered parameters and the gathered AdamW trees (bitwise)."""
+    tree = gather(state.params, device)
+    net = model.Model(cfg, device if device is not None
+                      else _leaves(tree)[0].device)
+    with torch.no_grad():
+        for p, t in zip(tree_flatten(model.param_tree(net))[0],
+                        tree_flatten(tree)[0]):
+            p.copy_(t)
+    net.requires_grad_(True)
+    return TrainState(params=net, opt=optim.OptState(
+        step=state.opt.step.clone(), m=gather(state.opt.m, device),
+        v=gather(state.opt.v, device),
+        master=gather(state.opt.master, device)))
 
 
 def _loss_fn(params: model.Model, batch, cfg: ModelConfig,
@@ -119,15 +233,19 @@ def _apply_update(opt_cfg, grads, state: TrainState) -> Tuple[TrainState,
 def build_train_step(cfg: ModelConfig, mesh, policy: ShardingPolicy,
                      opt_cfg: optim.OptimConfig, *, abstract_batch=None,
                      donate: bool = True):
-    """``(state, batch) -> (state, metrics)`` on the mesh's one rank, and
-    ``None`` where the reference returns the state's shardings.  ``batch``
+    """``(state, batch) -> (state, metrics)`` and the state's shardings
+    (:func:`state_shardings`), as the reference returns them.  ``batch``
     holds arrays or tensors; ``metrics`` has ``lr`` (float),
     ``grad_norm``, ``loss`` and ``total_loss`` (0-d tensors).  The state is
-    updated in place (``donate`` is moot)."""
+    updated in place (``donate`` is moot).  On a mesh of one rank the
+    state is whole; on more it is placed by the shardings returned (see
+    the module's note) and the batch's rows split over the batch axes."""
     check_policy(mesh, policy)
+    shardings = state_shardings(
+        mesh, abstract_train_state(cfg, opt_cfg), policy)
     if mesh.size != 1:
-        raise ValueError(f"auto mode runs on one rank, the mesh has "
-                         f"{mesh.size}: use build_train_step_manual")
+        return _sharded_train_step(cfg, mesh, policy, opt_cfg,
+                                   shardings), shardings
     M = max(1, policy.microbatches)
 
     def train_step(state: TrainState, batch):
@@ -157,7 +275,112 @@ def build_train_step(cfg: ModelConfig, mesh, policy: ShardingPolicy,
         state, metrics = _apply_update(opt_cfg, grads, state)
         return state, dict(metrics, loss=loss, total_loss=total)
 
-    return train_step, None
+    return train_step, shardings
+
+
+def _sharded_grads(net: ShardedModel, params, batch, remat):
+    """(total, loss, each leaf's per-rank gradient blocks): one forward
+    and backward of every rank over its rows."""
+    mesh = net.mesh
+    leaves = _leaves(params)
+    terms, aux = net.forward(params, batch, mode="train", remat=remat)
+    mesh.join()
+    owned = [t for t in terms if t is not None]
+    loss = owned[0]
+    for t in owned[1:]:
+        loss = loss + t
+    total = loss + AUX_COEF * aux
+    flat = [b for leaf in leaves for b in leaf.blocks]
+    got = torch.autograd.grad(total, flat, allow_unused=True)
+    grads, i = [], 0
+    for leaf in leaves:
+        n = len(leaf.blocks)
+        grads.append([g if g is not None else torch.zeros_like(b)
+                      for g, b in zip(got[i:i + n], leaf.blocks)])
+        i += n
+    return total.detach(), loss.detach(), grads
+
+
+def _global_norm(mesh, leaves, grads) -> List[torch.Tensor]:
+    """Every rank's copy of the whole gradient's norm: the ``psum`` over
+    the mesh of each rank's sum of squares over the blocks it is the
+    first holder of (a block replicated over an axis counts once)."""
+    local = []
+    mesh.fork()
+    for r in range(mesh.size):
+        with mesh.on(r):
+            sq = torch.zeros((), dtype=torch.float32, device=mesh.device)
+            for leaf, g in zip(leaves, grads):
+                box = leaf.box(r)
+                if all(leaf.box(q) != box for q in range(r)):
+                    sq = sq + torch.sum(torch.square(g[r].float()))
+            local.append(sq)
+    total = mesh.psum(local, mesh.axis_names)
+    out = []
+    for r in range(mesh.size):
+        with mesh.on(r):
+            out.append(torch.sqrt(total[r]))
+    return out
+
+
+def _sharded_train_step(cfg, mesh, policy, opt_cfg, shardings):
+    net = ShardedModel(cfg, mesh, policy)
+    M = max(1, policy.microbatches)
+    decays = optim.decays(model.param_tree(abstract_params(cfg)))
+
+    def block_tree(tree, r):
+        return map_tree(lambda _, leaf: leaf.blocks[r], tree)
+
+    def train_step(state: TrainState, batch):
+        batch = _as_tensors(batch, mesh.device)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % M:
+            raise ValueError(f"batch of {rows} does not split into "
+                             f"{M} microbatches")
+        leaves = _leaves(state.params)
+        with mesh.region():
+            acc = total = loss = None
+            for i in range(M):
+                mb = {k: v[i * rows // M:(i + 1) * rows // M]
+                      for k, v in batch.items()} if M > 1 else batch
+                t, l, g = _sharded_grads(net, state.params, mb,
+                                         policy.remat)
+                if M == 1:
+                    acc, total, loss = g, t, l
+                    break
+                if acc is None:
+                    acc = [[b.float() for b in bl] for bl in g]
+                    total, loss = t.float(), l.float()
+                else:
+                    for a, bl in zip(acc, g):
+                        for x, y in zip(a, bl):
+                            x.add_(y)
+                    total, loss = total + t, loss + l
+            if M > 1:
+                acc = [[b / M for b in bl] for bl in acc]
+                total, loss = total / M, loss / M
+            gnorm = _global_norm(mesh, leaves, acc)
+            treedef = tree_flatten(state.params)[1]
+            step = state.opt.step
+            mesh.fork()
+            for r in range(mesh.size):
+                with mesh.on(r):
+                    grads_r = tree_unflatten(treedef, [g[r] for g in acc])
+                    _, new_opt, metrics = optim.update(
+                        opt_cfg, grads_r, optim.OptState(
+                            step, block_tree(state.opt.m, r),
+                            block_tree(state.opt.v, r),
+                            block_tree(state.opt.master, r)),
+                        block_tree(state.params, r), grad_norm=gnorm[r],
+                        decays=decays)
+            del acc
+        opt = optim.OptState(new_opt.step, state.opt.m, state.opt.v,
+                             state.opt.master)
+        return TrainState(state.params, opt), dict(
+            lr=metrics["lr"], grad_norm=gnorm[0], loss=loss,
+            total_loss=total)
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------
@@ -277,11 +500,34 @@ def abstract_train_state(cfg: ModelConfig,
                       opt=optim.init(model.param_tree(params)))
 
 
-def _serving_policy(mesh, policy: ShardingPolicy) -> None:
-    check_policy(mesh, policy)
-    if mesh.size != 1:
-        raise ValueError(f"the serving steps run on one rank, the mesh has "
-                         f"{mesh.size}")
+def _global_logits(net: ShardedModel, logits: List[torch.Tensor],
+                   rows) -> torch.Tensor:
+    """The ranks' logits (their rows, whole vocab) as one (B, 1, V)
+    tensor on the caller's stream: each row block from its first
+    holder."""
+    net.mesh.join()
+    seen = {}
+    for r, (lo, hi) in enumerate(rows):
+        seen.setdefault((lo, hi), r)
+    return torch.cat([logits[seen[k]] for k in sorted(seen)], dim=0)
+
+
+def _sharded_prefill(cfg, mesh, policy):
+    net = ShardedModel(cfg, mesh, policy)
+
+    def prefill(params, batch):
+        batch = _as_tensors(batch, mesh.device)
+        B, S = next(iter(batch.values())).shape[:2]
+        full = model.init_cache(cfg, B, S, device=mesh.device)
+        cache = place(full, cache_shardings(mesh, full, policy))
+        del full
+        with torch.no_grad(), mesh.region():
+            logits = net.forward(params, batch, mode="prefill", cache=cache)
+            _, rows, _ = net.split_batch(batch)
+            out = _global_logits(net, logits, rows)
+        return out, cache
+
+    return prefill
 
 
 def build_prefill_step(cfg: ModelConfig, mesh, policy: ShardingPolicy, *,
@@ -289,9 +535,13 @@ def build_prefill_step(cfg: ModelConfig, mesh, policy: ShardingPolicy, *,
     """``(params, batch) -> (last-position logits (B, 1, V), cache)``:
     one prefill pass under ``torch.no_grad``, allocating a cache of the
     prompt's length (grow it with ``model.pad_cache`` for decode).
-    ``abstract_batch`` is accepted for the reference's signature (nothing
-    is placed)."""
-    _serving_policy(mesh, policy)
+    ``abstract_batch`` is accepted for the reference's signature.  On a
+    mesh of more than one rank ``params`` is placed (:func:`place_params`)
+    and so is the cache returned (``cache_shardings``; ``sharding.gather``
+    makes it whole)."""
+    check_policy(mesh, policy)
+    if mesh.size != 1:
+        return _sharded_prefill(cfg, mesh, policy)
 
     def prefill(params: model.Model, batch):
         batch = _as_tensors(batch, params.device)
@@ -310,9 +560,25 @@ def build_decode_step(cfg: ModelConfig, mesh, policy: ShardingPolicy, *,
     cache)`` runs one decode position under ``torch.no_grad`` and writes
     the cache in place (so ``donate`` is moot); the template is
     ``model.init_cache(cfg, batch, cache_len)`` on the ``meta``
-    device."""
-    _serving_policy(mesh, policy)
+    device.  On a mesh of more than one rank ``params`` is placed
+    (:func:`place_params`) and ``cache`` by ``cache_shardings(mesh,
+    template, policy)``."""
+    check_policy(mesh, policy)
     template = model.init_cache(cfg, batch, cache_len, device="meta")
+    if mesh.size != 1:
+        net = ShardedModel(cfg, mesh, policy, decode=True)
+
+        def sharded_decode(params, cache, batch_, cache_index):
+            batch_ = _as_tensors(batch_, mesh.device)
+            with torch.no_grad(), mesh.region():
+                logits = net.forward(params, batch_, mode="decode",
+                                     cache=cache,
+                                     cache_index=int(cache_index))
+                _, rows, _ = net.split_batch(batch_)
+                out = _global_logits(net, logits, rows)
+            return out, cache
+
+        return sharded_decode, template
 
     def decode(params: model.Model, cache, batch_, cache_index):
         batch_ = _as_tensors(batch_, params.device)
@@ -333,6 +599,10 @@ def state_to_reference(state: TrainState) -> TrainState:
     ``model.params_to_reference`` lays them out, ``m``, ``v`` and
     ``master`` stacked alike (copies), ``step`` a 0-d int32 tensor."""
     lay = model.to_reference_layout
+    if not isinstance(state.params, model.Model):     # placed: gathered
+        return TrainState(params=lay(gather(state.params)), opt=optim.OptState(
+            step=state.opt.step.clone(), m=lay(gather(state.opt.m)),
+            v=lay(gather(state.opt.v)), master=lay(gather(state.opt.master))))
     return TrainState(
         params=model.params_to_reference(state.params),
         opt=optim.OptState(step=state.opt.step.clone(), m=lay(state.opt.m),
@@ -365,10 +635,43 @@ def _unstack(ref_tree, like, device):
     return t.clone()
 
 
+def _unstack_placed(ref_tree, like):
+    """A placed tree in the reference's layout in ``like``'s structure
+    (:func:`model.param_tree`'s): each stacked leaf, placed with a
+    leading ``None``, cut into one placed leaf a repeat (copies)."""
+    if isinstance(like, dict):
+        return {k: _unstack_placed(ref_tree[k], like[k]) for k in like}
+    if isinstance(like, tuple):
+        sh = ref_tree.sharding
+        per = NamedSharding(sh.mesh, P(*sh.full_spec(ref_tree.ndim)[1:]))
+        return tuple(Placed(per, ref_tree.shape[1:],
+                            [b[u].clone() for b in ref_tree.blocks])
+                     for u in range(len(like)))
+    return ref_tree
+
+
 def state_from_reference(cfg: ModelConfig, ref_state, *,
                          device=None) -> TrainState:
     """A train state from the reference's layout (a restored checkpoint's
-    tree, tensors or arrays): the inverse of :func:`state_to_reference`."""
+    tree, tensors or arrays): the inverse of :func:`state_to_reference`.
+    A tree restored with ``shardings`` (placed leaves) gives the placed
+    state in the port's layout, on the same mesh."""
+    if isinstance(ref_state.opt.master["final_norm"]["scale"], Placed):
+        like = model.param_tree(abstract_params(cfg))
+        step = ref_state.opt.step
+        if isinstance(step, Placed):
+            step = step.blocks[0]
+        out = TrainState(
+            params=_unstack_placed(ref_state.params, like),
+            opt=optim.OptState(
+                step=torch.tensor(int(step), dtype=torch.int32),
+                m=_unstack_placed(ref_state.opt.m, like),
+                v=_unstack_placed(ref_state.opt.v, like),
+                master=_unstack_placed(ref_state.opt.master, like)))
+        for leaf in _leaves(out.params):
+            for b in leaf.blocks:
+                b.requires_grad_(True)
+        return out
     params = model.params_from_reference(cfg, ref_state.params,
                                          device=device)
     params.requires_grad_(True)

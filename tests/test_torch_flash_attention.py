@@ -268,6 +268,50 @@ def test_kernel_matches_plain_on_card(B, S, T, H, Hkv, D, causal, window,
                                want.float().cpu().numpy(), **_tol(dtype))
 
 
+def test_head_dims_cover_every_config():
+    """The kernel takes the head dim of every config with attention, at
+    full size and at smoke size (deepseek-coder-33b's smoke head dim is
+    8)."""
+    from repro_torch import configs
+    from repro_torch.models.config import ATTN, SHARED_ATTN, SWA
+    seen = set()
+    for arch in configs.ARCHS:
+        for cfg in (configs.get(arch), configs.smoke(arch)):
+            if {k for layer in cfg.pattern for k in layer} & {
+                    ATTN, SWA, SHARED_ATTN}:
+                assert cfg.head_dim in fa.HEAD_DIMS, (arch, cfg.head_dim)
+                seen.add(cfg.head_dim)
+    assert 8 in seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,T,H,Hkv,causal,window", [
+    (4, 64, 64, 8, 2, True, None),      # deepseek-coder-33b's smoke shape
+    (2, 77, 200, 8, 2, False, 50),      # ragged S != T with a window
+    (1, 300, 300, 8, 8, True, None)])
+def test_head_dim_8_matches_plain_on_card(B, S, T, H, Hkv, causal, window,
+                                          dtype):
+    """D = 8, below wgmma's k-step, takes the FMA instance padded to 16
+    columns in both dtypes: out and lse against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    tdt = DTYPES[dtype][0]
+    q, k, v = (torch.from_numpy(a).to("cuda", tdt)
+               for a in _qkv(B, S, T, H, Hkv, 8, seed=5))
+    before = fa.flash_attention.launches
+    got, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    want, want_lse = ref.flash_attention(q, k, v, causal=causal,
+                                         window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_tol(dtype))
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=1e-3, rtol=1e-5)
+
+
 @pytest.mark.cuda
 def test_bf16_kernel_rejects_misaligned_inputs():
     """TMA reads q, k and v from 16-byte boundaries: a contiguous bf16 view

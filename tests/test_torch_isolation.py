@@ -131,6 +131,7 @@ def test_port_imports_no_jax_and_no_reference_package(isolated):
                 "repro_torch.serving.synthetic", "repro_torch.launch.serve",
                 "repro_torch.optim", "repro_torch.data",
                 "repro_torch.runtime.steps", "repro_torch.runtime.sharding",
+                "repro_torch.runtime.spmd", "repro_torch.checkpoint",
                 "repro_torch.launch.train", "repro_torch.launch.mesh",
                 "repro_torch.bench.serve_bench", "repro_torch.bench.lm_step",
                 "repro_torch.bench.run"):

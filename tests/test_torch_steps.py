@@ -31,7 +31,7 @@ from repro_torch import configs, optim
 from repro_torch.core.overlap import tree_flatten
 from repro_torch.launch.mesh import local_mesh, make_mesh
 from repro_torch.models import model
-from repro_torch.runtime import steps
+from repro_torch.runtime import sharding, steps
 from repro_torch.runtime.sharding import ShardingPolicy
 
 B, S, DECODE_STEPS = 2, 16, 4
@@ -139,21 +139,40 @@ def test_abstract_params_and_train_state():
         sum(t.numel() for t in want)
 
 
-def test_serving_steps_refuse_what_the_port_cannot_place():
-    cfg = configs.smoke("granite-3-2b")
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        steps.build_prefill_step(cfg, make_mesh((2, 1), ("data", "model"),
-                                                "cpu"), ShardingPolicy())
-    with pytest.raises(NotImplementedError, match="tp"):
-        steps.build_decode_step(cfg, make_mesh((1, 2), ("data", "model"),
-                                               "cpu"),
-                                ShardingPolicy(fsdp=False), batch=1,
-                                cache_len=4)
-    with pytest.raises(ValueError, match="one rank"):
-        steps.build_decode_step(cfg, make_mesh((2, 1), ("data", "model"),
-                                               "cpu"),
-                                ShardingPolicy(**POLICY), batch=1,
-                                cache_len=4)
+def test_serving_steps_serve_on_several_ranks():
+    """The meshes and policies the serving steps refused before they were
+    sharded — FSDP over (2, 1), TP over (1, 2), whole replicas on (2, 1)
+    — now serve a prefill and a decode step, giving the one-rank step's
+    logits (fp32, ``TOL``)."""
+    cfg = dataclasses.replace(configs.smoke("granite-3-2b"),
+                              dtype="float32")
+    net = model.init(cfg, 0, "cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 8))
+    nxt = {"tokens": toks[:, :1]}
+
+    def serve(mesh, policy):
+        params = net if mesh.size == 1 else steps.place_params(
+            net, sharding.param_shardings(mesh, net, policy))
+        logits, cache = steps.build_prefill_step(cfg, mesh, policy)(
+            params, {"tokens": toks})
+        decode, template = steps.build_decode_step(
+            cfg, mesh, policy, batch=2, cache_len=9)
+        if mesh.size == 1:
+            cache = model.pad_cache(cfg, cache, 9)
+        else:
+            cache = sharding.place(
+                model.pad_cache(cfg, sharding.gather(cache), 9),
+                sharding.cache_shardings(mesh, template, policy))
+        return logits, decode(params, cache, nxt, 8)[0]
+
+    want = serve(make_mesh((1, 1), ("data", "model"), "cpu"),
+                 ShardingPolicy(**POLICY))
+    for shape, policy in (((2, 1), ShardingPolicy()),
+                          ((1, 2), ShardingPolicy(fsdp=False)),
+                          ((2, 1), ShardingPolicy(**POLICY))):
+        got = serve(make_mesh(shape, ("data", "model"), "cpu"), policy)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
 
 
 def test_lm_step_rows_are_the_references():
@@ -177,7 +196,7 @@ def test_lm_step_rows_are_the_references():
     assert [lm_step.train_not_run(configs.smoke(a), cuda)
             for a in configs.ARCHS] == [
         "no_backward_kernel", "no_backward_kernel", None, None,
-        "no_kernel_head_dim_8", None, None, "no_backward_kernel",
+        None, None, None, "no_backward_kernel",
         "no_backward_kernel", None]
     assert all(lm_step.train_not_run(configs.smoke(a), torch.device("cpu"))
                is None for a in configs.ARCHS)

@@ -367,17 +367,22 @@ def test_olmoe_step_matches():
 
 
 def test_sharding_refused_on_several_ranks(granite):
+    """Manual data parallelism still refuses ``fsdp=True``; the auto-mode
+    calls that the port refused on several ranks before the sharded steps
+    existed now build a step over the placed state and run it."""
     _, cfg, _ = granite
     mesh = make_mesh((2, 1), ("data", "model"), CPU)
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        steps.build_train_step(cfg, mesh, ShardingPolicy(),
-                               optim.OptimConfig())
-    with pytest.raises(ValueError, match="one rank"):
-        steps.build_train_step(cfg, mesh, ShardingPolicy(**_policy()),
-                               optim.OptimConfig())
     with pytest.raises(ValueError, match="fsdp=False"):
         steps.build_train_step_manual(cfg, mesh, ShardingPolicy(),
                                       optim.OptimConfig())
+    opt_cfg = optim.OptimConfig(**OPT)
+    for policy in (ShardingPolicy(), ShardingPolicy(**_policy())):
+        fn, sshard = steps.build_train_step(cfg, mesh, policy, opt_cfg)
+        assert sshard.params["embed"].mesh is mesh
+        state = steps.init_train_state(cfg, opt_cfg, 0, device=CPU,
+                                       shardings=sshard)
+        state, m = fn(state, _batches(cfg, 1)[0])
+        assert math.isfinite(float(m["loss"])) and int(state.opt.step) == 1
 
 
 # ---------------------------------------------------------------------------
