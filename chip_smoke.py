@@ -296,7 +296,20 @@ S3. olmoe-1b-7b served at full width on (1, 2) with EP (32 experts a
     largest, tokens equal.
 Each S phase zeroes every kernel's count before it and reads it after;
 the ``kernels`` line carries them as ``shard_launches``, and the memory a
-phase held must be free after it.  Then ``flash_attention`` is timed at
+phase held must be free after it.  S1 and S2 also read the mesh's
+collective counters over exactly their first step.
+D.  The dry run (``launch.dryrun``) of S1's and S2's exact cells on the
+    ``meta`` device (granite-3-2b, ``ShardingPolicy()``, 4 x 1024 tokens,
+    (4, 1) and (2, 2)), held exactly to what S1 and S2 counted on the
+    card: every rank's calls and operand bytes of each collective kind in
+    one step, and every rank's argument bytes against its measured state
+    bytes plus its step count and the rows of the batch the step slices
+    for it (``ShardedModel.split_batch``'s views of the card's batch).
+    Prints each cell's roofline terms (``bench.roofline``) beside the
+    measured s/step and peak, and the predicted peak bytes x ranks beside
+    the card's ``max_memory_allocated`` (not gated), and the phase's
+    seconds.
+Then ``flash_attention`` is timed at
 S1-S3's per-rank shapes and at head dim 8, and ``moe_gmm`` at S3's, as
 in phases 12 and 21.
 
@@ -3228,6 +3241,7 @@ def train_sharded(phase: str, shape: tuple, policy, flash_shape,
     """Phases S1/S2: the one-rank step 1 on the first batch, then
     ``SHARD_STEPS`` steps of the auto-mode step placed over a logical mesh
     of ``shape`` (see the module's note)."""
+    import copy
     import math
     import torch
     from repro_torch import configs, optim
@@ -3235,6 +3249,7 @@ def train_sharded(phase: str, shape: tuple, policy, flash_shape,
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.runtime import sharding, steps
+    from repro_torch.runtime.spmd import ShardedModel
     cfg = configs.get("granite-3-2b")
     data = SyntheticLMData(cfg, batch=SHARD_BATCH, seq=SHARD_SEQ, seed=0)
     one = one_rank_train_step(cfg, to_device(data.batch_at(0), device),
@@ -3268,12 +3283,20 @@ def train_sharded(phase: str, shape: tuple, policy, flash_shape,
         batch = to_device(data.batch_at(k), device)
         before = fa.flash_attention.launches
         torch.cuda.synchronize()
+        mesh.reset_counts()
         t0 = time.perf_counter()
         with _kernel_shapes() as seen:
             state, m = fn(state, batch)
             loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        if k == 0:       # phase D holds the dry run to one step's counts
+            counted = {"calls": copy.deepcopy(mesh.coll_calls),
+                       "bytes": copy.deepcopy(mesh.coll_bytes)}
+            # each rank's rows of the batch: the views the step slices
+            rows, _, _ = ShardedModel(cfg, mesh, policy).split_batch(batch)
+            batch_b = [sum(t.numel() * t.element_size() for t in b.values())
+                       for b in rows]
         launches = fa.flash_attention.launches - before
         if launches != per_rank_step * n_ranks or dict(
                 seen["flash_attention"]) != {flash_shape:
@@ -3331,9 +3354,70 @@ def train_sharded(phase: str, shape: tuple, policy, flash_shape,
             f"peak allocated {steps_log[-1]['peak_gib']:.2f} GiB; "
             f"{launches // n_ranks} flash_attention launches a rank at "
             f"{flash_shape}")
+    step_b = state.opt.step.numel() * state.opt.step.element_size()
     del state, fn, m
     return {"log": steps_log, "state_gib": [b / 2**30 for b in per_rank],
-            "one_rank": {k: one[k] for k in ("loss", "grad_norm")}}
+            "one_rank": {k: one[k] for k in ("loss", "grad_norm")},
+            "collectives": counted, "argument_bytes": [
+                s + step_b + b for s, b in zip(per_rank, batch_b)]}
+
+
+def dry_run_sharded(runs: dict) -> dict:
+    """Phase D: the dry run of S1's and S2's cells on the ``meta`` device,
+    held exactly to the collectives and argument bytes S1 and S2 counted
+    on the card (see the module's note).  ``runs`` maps (4, 1) and (2, 2)
+    to S1's and S2's results.  Returns each cell's record."""
+    from repro_torch import configs, optim
+    from repro_torch.bench import roofline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime.sharding import ShardingPolicy
+    t_phase = time.perf_counter()
+    cfg = configs.get("granite-3-2b")
+    shape = ShapeConfig("shard_train", SHARD_SEQ, SHARD_BATCH, "train")
+    out = {}
+    for mesh_shape, run in runs.items():
+        phase = f"D {mesh_shape}"
+        mesh = make_mesh(mesh_shape, ("data", "model"), "meta")
+        t0 = time.perf_counter()
+        cell, meta = dryrun.lower_cell(cfg, shape, mesh, ShardingPolicy(),
+                                       optim.OptimConfig(**SHARD_OPT))
+        rec = dryrun.measure(cell, meta, mesh_name=dryrun.mesh_name(mesh),
+                             lower_s=time.perf_counter() - t0)
+        got = {"calls": mesh.coll_calls, "bytes": mesh.coll_bytes}
+        if got != run["collectives"]:
+            raise AssertionError(f"{phase}: the dry run's collectives {got} "
+                                 f"differ from the card's "
+                                 f"{run['collectives']}")
+        args = rec["per_rank"]["argument_bytes"]
+        if args != run["argument_bytes"]:
+            raise AssertionError(f"{phase}: argument bytes a rank {args}, "
+                                 f"measured {run['argument_bytes']}")
+        calls = {k: v[0] for k, v in got["calls"].items() if v[0]}
+        nbytes = {k: v[0] for k, v in got["bytes"].items() if v[0]}
+        log(f"{phase}: collectives a step equal the card's on every rank "
+            f"(rank 0: calls {calls}, operand bytes {nbytes}); argument "
+            f"bytes a rank {args} equal the measured state + step + the "
+            f"step's batch rows; {rec['n_ops']} meta ops, lower "
+            f"{rec['lower_s']} s, step {rec['compile_s']} s")
+        a = roofline.analyze(rec)
+        last = run["log"][-1]
+        mem = rec["memory"]
+        predicted = (mem["peak_device_bytes"] * mesh.size
+                     + mem["outside_peak_bytes"]) / 2**30
+        log(f"{phase} roofline (H100 SXM constants; the plain versions' "
+            f"FLOPs): compute {a['t_compute_s']:.6f} s, memory "
+            f"{a['t_memory_s']:.6f} s, collective {a['t_collective_s']:.6f}"
+            f" s, dominant {a['dominant']}, useful {a['useful_ratio']:.3f};"
+            f" measured {last['s_per_step']:.6f} s/step; predicted peak "
+            f"{mem['peak_device_bytes'] / 2**30:.3f} GiB a rank, "
+            f"{predicted:.3f} GiB for the {mesh.size} ranks and the "
+            f"caller, beside the card's peak allocated "
+            f"{last['peak_gib']:.3f} GiB (not gated)")
+        out[mesh_shape] = rec
+    log(f"D dry run: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _greedy_serve(prefill, decode, params, cache_of, toks, device):
@@ -3630,6 +3714,7 @@ def main() -> int:
         "S2 granite-3-2b (2, 2)", ("flash_attention",), train_sharded, "S2",
         (2, 2), ShardingPolicy(), S2_FLASH, device)
     freed("S2 granite-3-2b (2, 2)", before)
+    dry_run_sharded({(4, 1): s1, (2, 2): s2})
     s3, s3_launches = _run_counted(
         "S3 olmoe-1b-7b (1, 2)", ("flash_attention", "moe_gmm"),
         serve_sharded_olmoe, device)

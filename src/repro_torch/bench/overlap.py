@@ -20,9 +20,10 @@ unchanged.  The reference's hard asserts are kept with their thresholds.
 
 The reference counts collectives in StableHLO text; the port reads the
 logical mesh's own counters instead, under keys named for what they
-count: ``ppermute_calls`` (per rank) stands for ``collective_permutes``,
-``reductions`` (``psum`` calls per rank) for ``all_reduces``, and
-``token_waits`` (sentinel waits per rank) for ``barriers``
+count: ``ppermute_calls`` (``coll_calls["ppermute"]`` per rank) stands
+for ``collective_permutes``, ``reductions`` (``psum`` calls per rank)
+for ``all_reduces``, and ``token_waits`` (sentinel waits per rank) for
+``barriers``
 (``optimization_barrier``).  Each equals what :func:`expected_counts`
 derives, or the bench fails.
 
@@ -350,8 +351,8 @@ def run_sync(mode: str, *, algorithm: str = "ring", segments: int = 1,
     seconds = time.perf_counter() - t0
     after = _launches()
     return {"results": results, "seconds": seconds,
-            "ppermute_calls": list(mesh.ppermute_calls),
-            "psum_calls": list(mesh.psum_calls),
+            "ppermute_calls": list(mesh.coll_calls["ppermute"]),
+            "psum_calls": list(mesh.coll_calls["psum"]),
             "token_waits": list(mesh.token_waits),
             "launches": {k: after[k] - before[k] for k in KERNELS}}
 
@@ -395,9 +396,10 @@ def _mesh_counts(leg: str, mesh: LogicalMesh, exp: Dict[str, Any]
                  ) -> Dict[str, int]:
     """The mesh's counters of the last call, per rank, held against the
     derived ``exp`` (a :func:`expected_counts` result)."""
-    got = {"ppermute_calls": _uniform(mesh.ppermute_calls,
+    got = {"ppermute_calls": _uniform(mesh.coll_calls["ppermute"],
                                       f"{leg} ppermute calls"),
-           "reductions": _uniform(mesh.psum_calls, f"{leg} reductions"),
+           "reductions": _uniform(mesh.coll_calls["psum"],
+                                  f"{leg} reductions"),
            "token_waits": _uniform(mesh.token_waits, f"{leg} token waits")}
     want = {"ppermute_calls": exp["ppermute_per_rank"],
             "reductions": exp["psum_per_rank"],

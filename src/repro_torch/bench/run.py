@@ -5,10 +5,9 @@ per paper table or figure.
   ifsker       — paper §7.2 Fig. 14
   overlap      — Level-B grad-sync schedules (beyond-paper)
   lm_step      — per-arch substrate regression timings
-
-The reference's fifth section, ``roofline`` (the §Roofline terms from the
-dry-run records), waits for the port of the dry run
-(``launch/dryrun.py`` and ``analysis/hlo_cost.py``).
+  roofline     — §Roofline terms from the dry-run records (if present:
+                 ``results/dryrun_torch.json``, written by
+                 ``repro_torch.launch.dryrun --all --out ...``)
 
 Prints ``name,us_per_call,derived`` CSV lines.  A section that fails
 prints its traceback and ``<name>,0.0,FAILED``, the other sections still
@@ -33,10 +32,10 @@ def main(argv=None) -> int:
                    help="the CUDA device unless named (e.g. cpu)")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
-    from . import gauss_seidel, ifsker, lm_step, overlap
+    from . import gauss_seidel, ifsker, lm_step, overlap, roofline
     print("name,us_per_call,derived")
     failures = 0
-    for mod in (gauss_seidel, ifsker, overlap, lm_step):
+    for mod in (gauss_seidel, ifsker, overlap, lm_step, roofline):
         name = mod.__name__.split(".")[-1]
         print(f"# --- {name} ---", flush=True)
         try:

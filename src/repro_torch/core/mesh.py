@@ -50,7 +50,50 @@ import torch
 Axes = Union[str, Sequence[str]]
 
 __all__ = ["LogicalMesh", "resolve_device", "Token", "ad_all_gather",
-           "ad_reduce_scatter", "ad_psum"]
+           "ad_reduce_scatter", "ad_psum", "COLLECTIVES", "current_rank",
+           "current_collective", "nbytes"]
+
+COLLECTIVES = ("ppermute", "psum", "all_gather", "reduce_scatter",
+               "all_to_all")
+
+# the rank whose work is being issued, and the collective running
+_state = threading.local()
+
+
+def current_rank() -> Optional[int]:
+    """The rank whose work the calling thread issues now (inside
+    :meth:`LogicalMesh.on` or a transfer), else None."""
+    return getattr(_state, "rank", None)
+
+
+def current_collective() -> Optional[str]:
+    """The outermost collective the calling thread runs now, else None."""
+    return getattr(_state, "coll", None)
+
+
+def nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class _On:
+    """:meth:`LogicalMesh.on`: rank ``rank`` is :func:`current_rank` and,
+    on CUDA, its stream the current stream."""
+
+    __slots__ = ("rank", "stream", "prev")
+
+    def __init__(self, rank: int, stream) -> None:
+        self.rank, self.stream = rank, stream
+
+    def __enter__(self) -> None:
+        self.prev = getattr(_state, "rank", None)
+        _state.rank = self.rank
+        if self.stream is not None:
+            self.stream.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        if self.stream is not None:
+            self.stream.__exit__(*exc)
+        _state.rank = self.prev
 
 
 def resolve_device(device=None) -> torch.device:
@@ -79,10 +122,10 @@ class LogicalMesh:
     """``shape`` logical ranks named by ``axis_names`` on one ``device``.
 
     ``shape`` maps each axis to its size, in order, like a jax mesh's.
-    ``ppermute_calls[r]`` counts the ``ppermute`` calls rank ``r`` took
-    part in (every rank executes every call, as in SPMD, whether or not it
-    has a pair); ``psum_calls[r]`` counts the ``psum`` calls it took part
-    in; ``token_waits[r]`` counts the sentinel waits on its stream
+    ``coll_calls[kind][r]`` (see the module's note) counts the calls of
+    collective ``kind`` that rank ``r`` took part in (every rank executes
+    every call, as in SPMD, whether or not it has a pair);
+    ``token_waits[r]`` counts the sentinel waits on its stream
     (:meth:`wait_token`).
     """
 
@@ -104,11 +147,7 @@ class LogicalMesh:
         self.streams: Optional[List[torch.cuda.Stream]] = (
             [torch.cuda.Stream(self.device) for _ in range(self.size)]
             if self.device.type == "cuda" else None)
-        self.ppermute_calls = [0] * self.size
-        self.psum_calls = [0] * self.size
-        self.reduce_scatter_calls = [0] * self.size
-        self.all_gather_calls = [0] * self.size
-        self.token_waits = [0] * self.size
+        self.reset_counts()
         self._depth = threading.local()
 
     def __repr__(self) -> str:
@@ -116,11 +155,48 @@ class LogicalMesh:
                 f"{self.axis_names}, device={str(self.device)!r})")
 
     def reset_counts(self) -> None:
-        self.ppermute_calls = [0] * self.size
-        self.psum_calls = [0] * self.size
-        self.reduce_scatter_calls = [0] * self.size
-        self.all_gather_calls = [0] * self.size
+        self.coll_calls: Dict[str, List[int]] = {
+            k: [0] * self.size for k in COLLECTIVES}
+        self.coll_bytes: Dict[str, List[int]] = {
+            k: [0] * self.size for k in COLLECTIVES}
+        self.coll_group_bytes: Dict[Tuple[str, int], List[int]] = {}
+        self.coll_tag_bytes: Dict[Tuple[str, str], List[int]] = {}
         self.token_waits = [0] * self.size
+
+    def count(self, kind: str, rank: int, operand_bytes: int, group: int,
+              tag: Optional[str] = None) -> None:
+        """One call of collective ``kind`` on ``rank``: its operand bytes
+        and the size of the group it ran over; with ``tag`` (``"fsdp"``
+        for the sharded model's weight gathers and their gradients) its
+        bytes are also summed in ``coll_tag_bytes[(kind, tag)]``."""
+        self.coll_calls[kind][rank] += 1
+        self.coll_bytes[kind][rank] += operand_bytes
+        for table, key in ((self.coll_group_bytes, (kind, group)),
+                           (self.coll_tag_bytes, (kind, tag))):
+            if key[1] is None:
+                continue
+            per = table.get(key)
+            if per is None:
+                per = table[key] = [0] * self.size
+            per[rank] += operand_bytes
+
+    @contextlib.contextmanager
+    def collective(self, kind: str) -> Iterator[bool]:
+        """Run collective ``kind``: yields whether the call is outermost
+        (the one to count); inside, :func:`current_collective` names the
+        outermost collective."""
+        prev = getattr(_state, "coll", None)
+        _state.coll = prev or kind
+        try:
+            yield prev is None
+        finally:
+            _state.coll = prev
+
+    def _count_all(self, kind: str, xs: Sequence[torch.Tensor],
+                   axis: Axes) -> None:
+        g = self.axis_size(axis)
+        for r, x in enumerate(xs):
+            self.count(kind, r, nbytes(x), g)
 
     # -- axes ----------------------------------------------------------------
     def _axes(self, axis: Axes) -> Tuple[str, ...]:
@@ -164,11 +240,11 @@ class LogicalMesh:
         return [[r for _, r in sorted(g)] for g in by_rest.values()]
 
     # -- streams -------------------------------------------------------------
-    def on(self, rank: int):
-        """Issue work as rank ``rank``: its stream is the current one."""
-        if self.streams is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self.streams[rank])
+    def on(self, rank: int) -> _On:
+        """Issue work as rank ``rank``: its stream is the current one, and
+        it is :func:`current_rank`."""
+        return _On(rank, None if self.streams is None
+                   else torch.cuda.stream(self.streams[rank]))
 
     def fork(self) -> None:
         """Every rank's stream waits for the caller's (current) stream."""
@@ -205,14 +281,16 @@ class LogicalMesh:
 
     def _transfer(self, x: torch.Tensor, src: int, dst: int,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """A copy of rank ``src``'s ``x`` made on rank ``dst``'s stream,
-        into ``out`` (a tensor or view of rank ``dst``'s) when given."""
+        """A copy of rank ``src``'s ``x`` made on rank ``dst``'s stream (as
+        rank ``dst``'s work), into ``out`` (a tensor or view of rank
+        ``dst``'s) when given."""
         if self.streams is None:
-            return x.clone() if out is None else out.copy_(x)
+            with _On(dst, None):
+                return x.clone() if out is None else out.copy_(x)
         s_src, s_dst = self.streams[src], self.streams[dst]
         if src != dst:
             s_dst.wait_event(s_src.record_event())
-        with torch.cuda.stream(s_dst):
+        with self.on(dst):
             y = torch.empty_like(x, memory_format=torch.contiguous_format) \
                 if out is None else out
             y.copy_(x)
@@ -241,14 +319,16 @@ class LogicalMesh:
             raise ValueError(f"ppermute: {list(perm)} is not a partial "
                              f"permutation of {n} axis indices")
         out: List[Optional[torch.Tensor]] = [None] * self.size
-        for g in self.groups(axis):
-            for i, j in perm:
-                out[g[j]] = self._transfer(xs[g[i]], g[i], g[j])
-        for r in range(self.size):
-            self.ppermute_calls[r] += 1
-            if out[r] is None:
-                with self.on(r):
-                    out[r] = torch.zeros_like(xs[r])
+        with self.collective("ppermute") as outer:
+            for g in self.groups(axis):
+                for i, j in perm:
+                    out[g[j]] = self._transfer(xs[g[i]], g[i], g[j])
+            for r in range(self.size):
+                if out[r] is None:
+                    with self.on(r):
+                        out[r] = torch.zeros_like(xs[r])
+        if outer:
+            self._count_all("ppermute", xs, axis)
         return out
 
     def psum(self, xs: Sequence[torch.Tensor], axis: Axes
@@ -257,19 +337,20 @@ class LogicalMesh:
         order on the group's first rank, then copied to every member."""
         self._check_values(xs, "psum")
         out: List[Optional[torch.Tensor]] = [None] * self.size
-        for g in self.groups(axis):
-            root = g[0]
-            with self.on(root):
-                total = xs[root].clone()
-            for q in g[1:]:
-                got = self._transfer(xs[q], q, root)
+        with self.collective("psum") as outer:
+            for g in self.groups(axis):
+                root = g[0]
                 with self.on(root):
-                    total.add_(got)
-            out[root] = total
-            for q in g[1:]:
-                out[q] = self._transfer(total, root, q)
-        for r in range(self.size):
-            self.psum_calls[r] += 1
+                    total = xs[root].clone()
+                for q in g[1:]:
+                    got = self._transfer(xs[q], q, root)
+                    with self.on(root):
+                        total.add_(got)
+                out[root] = total
+                for q in g[1:]:
+                    out[q] = self._transfer(total, root, q)
+        if outer:
+            self._count_all("psum", xs, axis)
         return out
 
     def all_gather(self, xs: Sequence[torch.Tensor], axis: Axes,
@@ -280,23 +361,26 @@ class LogicalMesh:
         (each value copied once, into its place)."""
         self._check_values(xs, "all_gather")
         out: List[Optional[torch.Tensor]] = [None] * self.size
-        for g in self.groups(axis):
-            for r in g:
-                x = xs[r]
-                shape = list(x.shape)
-                if tiled:
-                    shape[dim] *= len(g)
-                else:
-                    shape.insert(dim, len(g))
-                with self.on(r):
-                    y = torch.empty(shape, dtype=x.dtype, device=x.device)
-                for i, q in enumerate(g):
-                    part = y.narrow(dim, i * x.shape[dim], x.shape[dim]) \
-                        if tiled else y.select(dim, i)
-                    self._transfer(xs[q], q, r, out=part)
-                out[r] = y
-            for r in g:
-                self.all_gather_calls[r] += 1
+        with self.collective("all_gather") as outer:
+            for g in self.groups(axis):
+                for r in g:
+                    x = xs[r]
+                    shape = list(x.shape)
+                    if tiled:
+                        shape[dim] *= len(g)
+                    else:
+                        shape.insert(dim, len(g))
+                    with self.on(r):
+                        y = torch.empty(shape, dtype=x.dtype,
+                                        device=x.device)
+                    for i, q in enumerate(g):
+                        part = y.narrow(dim, i * x.shape[dim],
+                                        x.shape[dim]) \
+                            if tiled else y.select(dim, i)
+                        self._transfer(xs[q], q, r, out=part)
+                    out[r] = y
+        if outer:
+            self._count_all("all_gather", xs, axis)
         return out
 
     def reduce_scatter(self, xs: Sequence[torch.Tensor], axis: Axes,
@@ -314,17 +398,19 @@ class LogicalMesh:
                                  f"{tuple(x.shape)} does not split over "
                                  f"{n} ranks")
         out: List[Optional[torch.Tensor]] = [None] * self.size
-        for g in self.groups(axis):
-            for i, r in enumerate(g):
-                k = xs[r].shape[dim] // n
-                total = None
-                for q in g:
-                    got = self._transfer(xs[q].narrow(dim, i * k, k), q, r)
-                    with self.on(r):
-                        total = got if total is None else total.add_(got)
-                out[r] = total
-            for r in g:
-                self.reduce_scatter_calls[r] += 1
+        with self.collective("reduce_scatter") as outer:
+            for g in self.groups(axis):
+                for i, r in enumerate(g):
+                    k = xs[r].shape[dim] // n
+                    total = None
+                    for q in g:
+                        got = self._transfer(xs[q].narrow(dim, i * k, k),
+                                             q, r)
+                        with self.on(r):
+                            total = got if total is None else total.add_(got)
+                    out[r] = total
+        if outer:
+            self._count_all("reduce_scatter", xs, axis)
         return out
 
     def all_to_all(self, xs: Sequence[torch.Tensor], axis: Axes
@@ -339,11 +425,14 @@ class LogicalMesh:
                 raise ValueError(f"all_to_all: leading dimension must be "
                                  f"the axis size {n}, got {tuple(x.shape)}")
         out: List[Optional[torch.Tensor]] = [None] * self.size
-        for g in self.groups(axis):
-            for i, r in enumerate(g):
-                parts = [self._transfer(xs[q][i], q, r) for q in g]
-                with self.on(r):
-                    out[r] = torch.stack(parts)
+        with self.collective("all_to_all") as outer:
+            for g in self.groups(axis):
+                for i, r in enumerate(g):
+                    parts = [self._transfer(xs[q][i], q, r) for q in g]
+                    with self.on(r):
+                        out[r] = torch.stack(parts)
+        if outer:
+            self._count_all("all_to_all", xs, axis)
         return out
 
     # -- the sentinel's artificial dependency --------------------------------

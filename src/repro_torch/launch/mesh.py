@@ -1,10 +1,12 @@
-"""Mesh construction for local logical meshes — the port of
-``repro/launch/mesh.py``.
+"""Mesh construction for the production pods and local logical meshes —
+the port of ``repro/launch/mesh.py``.
 
 The reference builds jax device meshes; here a mesh is a
 :class:`~repro_torch.core.mesh.LogicalMesh`, logical ranks on one device,
-each with its own CUDA stream.  The reference's production mesh is a TPU
-pod (256 or 512 chips) and has no counterpart on one card.
+each with its own CUDA stream on a card.  The reference's production mesh
+is a TPU pod (256 or 512 chips); :func:`make_production_mesh` gives the
+same shape and axes as logical ranks on the ``meta`` device, where the dry
+run (``launch/dryrun.py``) places and steps a cell without memory.
 """
 
 from __future__ import annotations
@@ -13,7 +15,21 @@ from typing import Optional, Sequence, Tuple
 
 from ..core.mesh import LogicalMesh
 
-__all__ = ["make_mesh", "local_mesh", "dp_axes", "tp_axis", "axis_size"]
+__all__ = ["make_production_mesh", "make_mesh", "local_mesh", "dp_axes",
+           "tp_axis", "axis_size"]
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> LogicalMesh:
+    """The assigned production mesh, as logical ranks.
+
+    Single pod: (16, 16) over ("data", "model") — 256 ranks.
+    Multi-pod:  (2, 16, 16) over ("pod", "data", "model") — 512 ranks.
+    On ``meta`` (the default) no stream is made and nothing is allocated.
+    """
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return LogicalMesh(shape, axes, device)
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],

@@ -58,7 +58,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.func import functional_call
 
-from ..core.mesh import ad_all_gather, ad_psum, ad_reduce_scatter
+from ..core.mesh import ad_all_gather, ad_psum, ad_reduce_scatter, nbytes
 from ..launch.mesh import axis_size
 from ..models import layers as L
 from ..models import model
@@ -84,6 +84,17 @@ def _overlap(a: Box, b: Box) -> Optional[Box]:
 
 def _shift(box: Box, origin: Box) -> Box:
     return tuple((a - o, b - o) for (a, b), (o, _) in zip(box, origin))
+
+
+def _move(mesh, x: torch.Tensor, src: int, dst: int,
+          out: torch.Tensor) -> None:
+    """A cache piece copied from rank ``src`` into ``out`` of rank
+    ``dst``'s; between two ranks, a point-to-point send counted as a
+    ``ppermute`` of the piece on the sender."""
+    with mesh.collective("ppermute") as outer:
+        mesh._transfer(x, src, dst, out=out)
+    if outer and src != dst:
+        mesh.count("ppermute", src, nbytes(x), 2)
 
 
 # ---------------------------------------------------------------------------
@@ -125,25 +136,38 @@ class _UsePlan:
 
     def assemble(self, blocks: Sequence[torch.Tensor], r: int
                  ) -> torch.Tensor:
-        """Rank ``r``'s use, on its stream, from the holders' blocks."""
+        """Rank ``r``'s use, on its stream, from the holders' blocks: rank
+        ``r``'s part of an all-gather over the holders (counted as one,
+        its own block the operand)."""
         mesh = self.mesh
         shape = tuple(b - a for a, b in self.use[r])
-        with mesh.on(r):
-            out = torch.empty(shape, dtype=blocks[r].dtype,
-                              device=blocks[r].device)
-        for q, box in self.sources[r]:
-            mesh._transfer(blocks[q], q, r, out=_slice(out, box))
+        with mesh.collective("all_gather") as outer:
+            with mesh.on(r):
+                out = torch.empty(shape, dtype=blocks[r].dtype,
+                                  device=blocks[r].device)
+            for q, box in self.sources[r]:
+                mesh._transfer(blocks[q], q, r, out=_slice(out, box))
+        if outer:
+            mesh.count("all_gather", r, nbytes(blocks[r]),
+                       len(self.sources[r]), "fsdp")
         return out
 
     def reduce(self, grads: Sequence[torch.Tensor], r: int) -> torch.Tensor:
         """Rank ``r``'s block of the gradient: the sum, in rank order, of
-        its part of every use's gradient."""
+        its part of every use's gradient.  Over more than one use it is
+        rank ``r``'s part of a reduce-scatter (an all-reduce where the
+        block is the whole use), its use's gradient the operand."""
         mesh = self.mesh
+        sinks = self.sinks[r]
+        kind = "psum" if self.use[r] == self.boxes[r] else "reduce_scatter"
         total = None
-        for q, box in self.sinks[r]:
-            got = mesh._transfer(_slice(grads[q], box), q, r)
-            with mesh.on(r):
-                total = got if total is None else total.add_(got)
+        with mesh.collective(kind) as outer:
+            for q, box in sinks:
+                got = mesh._transfer(_slice(grads[q], box), q, r)
+                with mesh.on(r):
+                    total = got if total is None else total.add_(got)
+        if outer and len(sinks) > 1:
+            mesh.count(kind, r, nbytes(grads[r]), len(sinks), "fsdp")
         return total
 
 
@@ -154,8 +178,6 @@ class _Use(torch.autograd.Function):
         mesh = plan.mesh
         if plan.trivial:
             return tuple(b.view_as(b) for b in blocks)
-        for r in range(mesh.size):
-            mesh.all_gather_calls[r] += 1
         return tuple(plan.assemble(blocks, r) for r in range(mesh.size))
 
     @staticmethod
@@ -168,8 +190,6 @@ class _Use(torch.autograd.Function):
             tuple(b - a for a, b in plan.use[r]), dtype=ctx.dtype,
             device=mesh.device) for r, g in enumerate(gs)]
         out = [plan.reduce(gs, r) for r in range(mesh.size)]
-        for r in range(mesh.size):
-            mesh.reduce_scatter_calls[r] += 1
         mesh.join()
         return (None,) + tuple(out)
 
@@ -382,9 +402,9 @@ class ShardedModel:
                     if ov is None or ov in done:
                         continue
                     done.add(ov)
-                    mesh._transfer(_slice(leaf.blocks[q],
-                                          _shift(ov, leaf.box(q))), q, r,
-                                   out=_slice(t, _shift(ov, use)))
+                    _move(mesh, _slice(leaf.blocks[q],
+                                       _shift(ov, leaf.box(q))), q, r,
+                          _slice(t, _shift(ov, use)))
                 uses[r][k] = t[0]
                 backs.append((leaf, r, use, t))
         return uses, backs
@@ -395,9 +415,8 @@ class ShardedModel:
             for q in range(mesh.size):
                 ov = _overlap(use, leaf.box(q))
                 if ov is not None:
-                    mesh._transfer(_slice(t, _shift(ov, use)), r, q,
-                                   out=_slice(leaf.blocks[q],
-                                              _shift(ov, leaf.box(q))))
+                    _move(mesh, _slice(t, _shift(ov, use)), r, q,
+                          _slice(leaf.blocks[q], _shift(ov, leaf.box(q))))
 
     # -- blocks ---------------------------------------------------------------
     def _norm(self, tree, repeat, xs, module) -> List[torch.Tensor]:

@@ -305,14 +305,19 @@ def _global_norm(mesh, leaves, grads) -> List[torch.Tensor]:
     """Every rank's copy of the whole gradient's norm: the ``psum`` over
     the mesh of each rank's sum of squares over the blocks it is the
     first holder of (a block replicated over an axis counts once)."""
+    holders = []            # per leaf: the first rank holding each block
+    for leaf in leaves:
+        first: Dict[Any, int] = {}
+        for r in range(mesh.size):
+            first.setdefault(leaf.box(r), r)
+        holders.append(set(first.values()))
     local = []
     mesh.fork()
     for r in range(mesh.size):
         with mesh.on(r):
             sq = torch.zeros((), dtype=torch.float32, device=mesh.device)
-            for leaf, g in zip(leaves, grads):
-                box = leaf.box(r)
-                if all(leaf.box(q) != box for q in range(r)):
+            for first, g in zip(holders, grads):
+                if r in first:
                     sq = sq + torch.sum(torch.square(g[r].float()))
             local.append(sq)
     total = mesh.psum(local, mesh.axis_names)

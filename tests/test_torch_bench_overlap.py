@@ -29,6 +29,7 @@ import pytest
 
 from repro_torch.bench import overlap
 from repro_torch.core import schedule as S
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 LEAVES = [4096, 8, 300_000, 65_536, 1 << 20, 17, 4 << 20, 123_456, 2048]

@@ -15,16 +15,12 @@ package's ``repro.checkpoint``, on the CPU.
   ``ELASTIC_TIMEOUT`` seconds: the reference's runtime keeps two revoke
   races that can park its ``taskwait`` forever after an injected death
   (ROADMAP section 3; the port's ``core/tac.py`` fixed them), which would
-  otherwise stop the whole test session.
+  otherwise stop the whole test session (``tests/torch_elastic_guard.py``).
 """
 
 import json
 import os
-import pickle
-import subprocess
-import sys
 import threading
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,45 +30,9 @@ from repro import checkpoint as jax_ckpt
 from repro_torch import checkpoint as ckpt
 from repro_torch.bench import gauss_seidel as gs
 from repro_torch.core import tac
+from torch_elastic_guard import reference_run_elastic
 
 NOTIFY = ("polling", "continuation")
-ROOT = Path(__file__).resolve().parents[1]
-ELASTIC_TIMEOUT, ELASTIC_ATTEMPTS = 120, 3
-_REFERENCE_ELASTIC = r"""
-import pickle, sys
-import numpy as np
-from benchmarks import gauss_seidel
-out, kw = sys.argv[1], pickle.loads(bytes.fromhex(sys.argv[2]))
-grid, info = gauss_seidel.run_elastic(**kw)
-with open(out, "wb") as f:
-    pickle.dump((np.asarray(grid), info), f)
-"""
-
-
-def _reference_run_elastic(ckpt_dir: str, **kw):
-    """``benchmarks.gauss_seidel.run_elastic(ckpt_dir, **kw)`` in a
-    subprocess: (grid, info).  A run that has not ended within
-    ``ELASTIC_TIMEOUT`` s is killed and started again in a fresh
-    directory, at most ``ELASTIC_ATTEMPTS`` times (see the module's
-    note)."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-        [str(ROOT), str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
-    for attempt in range(ELASTIC_ATTEMPTS):
-        d = f"{ckpt_dir}_{attempt}"
-        out = d + ".pkl"
-        arg = pickle.dumps(dict(kw, ckpt_dir=d)).hex()
-        try:
-            proc = subprocess.run(
-                [sys.executable, "-c", _REFERENCE_ELASTIC, out, arg],
-                env=env, cwd=str(ROOT), capture_output=True, text=True,
-                timeout=ELASTIC_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            continue
-        assert proc.returncode == 0, proc.stderr
-        with open(out, "rb") as f:
-            return pickle.load(f)
-    raise AssertionError(f"the reference's run_elastic did not end within "
-                         f"{ELASTIC_TIMEOUT} s in {ELASTIC_ATTEMPTS} runs")
 
 
 def _bf16_bits(t: torch.Tensor) -> np.ndarray:
@@ -293,10 +253,11 @@ def test_gauss_seidel_elastic_resume_matches_shrunken_reference(tmp_path,
     clean, ic = gs.run_elastic(db, n_ranks=3, nby=2, nbx=6, **kw)
     assert not ic["recoveries"]
     assert torch.equal(healed, clean)
-    want, winfo = _reference_run_elastic(str(tmp_path / "jax"), n_ranks=4,
-                                         nby=3, nbx=3, kill_iter=3,
-                                         kill_rank=1, bs=4, iters=4, seed=7,
-                                         notify=notify)
+    want, winfo = reference_run_elastic("gauss_seidel",
+                                        str(tmp_path / "jax"), n_ranks=4,
+                                        nby=3, nbx=3, kill_iter=3,
+                                        kill_rank=1, bs=4, iters=4, seed=7,
+                                        notify=notify)
     np.testing.assert_array_equal(healed.numpy(), want)
     assert winfo["recoveries"] == info["recoveries"]
     for it, v in winfo["residuals"].items():

@@ -134,7 +134,9 @@ def test_port_imports_no_jax_and_no_reference_package(isolated):
                 "repro_torch.runtime.spmd", "repro_torch.checkpoint",
                 "repro_torch.launch.train", "repro_torch.launch.mesh",
                 "repro_torch.bench.serve_bench", "repro_torch.bench.lm_step",
-                "repro_torch.bench.run"):
+                "repro_torch.bench.run", "repro_torch.launch.dryrun",
+                "repro_torch.analysis.op_cost", "repro_torch.bench.roofline",
+                "repro_torch.bench.report"):
         assert mod in out["modules"]
 
 

@@ -253,7 +253,7 @@ def test_explicit_rounds_bitwise_and_counts(jax_out, name, inp, shape,
     sched = _sched_of(name, kw, shape or MESHES[inp][0])
     want = lowering.sends_per_rank(sched)
     assert int(jax_out[name + "__pp"]) == want
-    assert mesh.ppermute_calls == [want] * mesh.size
+    assert mesh.coll_calls["ppermute"] == [want] * mesh.size
 
 
 @pytest.mark.parametrize("jax_impl", ["ref", "pallas_interpret"])
@@ -297,7 +297,7 @@ def test_wire_dtypes(jax_out, wire, jax_impl, port_impl):
     extra = 2 * 7 if wire == "int8" else 0
     want_pp = lowering.sends_per_rank(ring) + extra
     assert int(jax_out[f"wire_{wire}_{jax_impl}__pp"]) == want_pp
-    assert mesh.ppermute_calls == [want_pp] * 8
+    assert mesh.coll_calls["ppermute"] == [want_pp] * 8
 
 
 def test_int8_wire_segmented_with_padding(jax_out):
@@ -308,7 +308,7 @@ def test_int8_wire_segmented_with_padding(jax_out):
                                atol=INT8_FMA_ATOL)
     ring = schedule_ir.build("allreduce", "ring", 8, segments=2)
     want = lowering.sends_per_rank(ring) + 2 * 7 * 2
-    assert mesh.ppermute_calls == [want] * 8
+    assert mesh.coll_calls["ppermute"] == [want] * 8
     assert int(jax_out["wire_int8_s2_ref__pp"]) == want
 
 
@@ -324,7 +324,7 @@ def test_psum_legs_within_tolerance(jax_out, name, inp, shape, names, kw):
     got, mesh = _run_allreduce(jax_out, inp, shape, names, **kw)
     np.testing.assert_allclose(got, jax_out[name], atol=1e-5, rtol=1e-5)
     pp = int(jax_out[name + "__pp"])
-    assert mesh.ppermute_calls == [pp] * mesh.size
+    assert mesh.coll_calls["ppermute"] == [pp] * mesh.size
 
 
 SYNC_BUCKET_BYTES = 1 << 9
@@ -384,7 +384,8 @@ def test_sync_grads_bitwise(jax_out, name, kw):
                                            atol=INT8_FMA_ATOL)
             else:
                 np.testing.assert_array_equal(v.float().numpy(), want)
-    assert mesh.ppermute_calls == [int(jax_out[name + "__pp"])] * mesh.size
+    assert mesh.coll_calls["ppermute"] == \
+        [int(jax_out[name + "__pp"])] * mesh.size
     waits = mesh.token_waits[0]
     assert mesh.token_waits == [waits] * mesh.size
     assert (waits > 0) == (kw["mode"] == "sentinel")
@@ -401,7 +402,7 @@ def test_sync_grads_native_within_tolerance(jax_out):
             np.testing.assert_allclose(
                 v.float().numpy(), jax_out[f"sync_bucketed_native__{k}"][r],
                 atol=tol, rtol=tol)
-    assert mesh.ppermute_calls == [0] * 8
+    assert mesh.coll_calls["ppermute"] == [0] * 8
 
 
 def test_sync_grads_compress_int8(jax_out):
@@ -416,7 +417,7 @@ def test_sync_grads_compress_int8(jax_out):
             want = jax_out[f"sync_fused_compress_int8__{k}"][r]
             step = np.max(np.abs(want)) / 127 * 2
             assert np.max(np.abs(v.float().numpy() - want)) <= step
-    assert mesh.ppermute_calls == [0] * 8
+    assert mesh.coll_calls["ppermute"] == [0] * 8
 
 
 def test_sync_grads_sentinel_equals_bucketed_and_waits(jax_out):
@@ -463,7 +464,8 @@ def test_halo_exchange_rows(jax_out):
                                       want[2 * r + 1])
     assert torch.count_nonzero(tops[0]) == 0
     assert torch.count_nonzero(bottoms[7]) == 0
-    assert mesh.ppermute_calls == [int(jax_out["halo__pp"])] * 8 == [2] * 8
+    assert mesh.coll_calls["ppermute"] == \
+        [int(jax_out["halo__pp"])] * 8 == [2] * 8
 
 
 def test_pipeline_apply(jax_out):
@@ -480,7 +482,7 @@ def test_pipeline_apply(jax_out):
                                   mesh=mesh)
     np.testing.assert_allclose(out.numpy(), jax_out["pipeline"], atol=1e-5,
                                rtol=1e-5)
-    assert mesh.ppermute_calls == [M + S - 1] * S
+    assert mesh.coll_calls["ppermute"] == [M + S - 1] * S
     assert abs(pipeline.bubble_fraction(4, 6) - 3 / 9) < 1e-12
 
 
@@ -527,7 +529,7 @@ def test_logical_mesh_axes_and_ppermute_zeros():
     xs = [torch.full((2,), float(r + 1)) for r in range(6)]
     got = mesh.ppermute(xs, "data", [(0, 1), (1, 2)])
     assert [float(g[0]) for g in got] == [0.0, 1.0, 2.0, 0.0, 4.0, 5.0]
-    assert mesh.ppermute_calls == [1] * 6
+    assert mesh.coll_calls["ppermute"] == [1] * 6
     summed = mesh.psum(xs, "pod")
     assert [float(s[0]) for s in summed] == [5.0, 7.0, 9.0] * 2
     with pytest.raises(ValueError, match="permutation"):

@@ -275,8 +275,8 @@ def test_reduce_scatter_and_tiled_all_gather(axis):
     psum = mesh.psum(xs, axis)
     for r in range(mesh.size):
         np.testing.assert_allclose(gathered[r], psum[r], rtol=1e-15)
-    assert mesh.reduce_scatter_calls == [1] * 8
-    assert mesh.all_gather_calls == [1] * 8
+    assert mesh.coll_calls["reduce_scatter"] == [1] * 8
+    assert mesh.coll_calls["all_gather"] == [1] * 8
     stacked = mesh.all_gather(xs, axis)      # the untiled form, unchanged
     for g in mesh.groups(axis):
         for r in g:
