@@ -312,6 +312,26 @@ D.  The dry run (``launch.dryrun``) of S1's and S2's exact cells on the
 Then ``flash_attention`` is timed at
 S1-S3's per-rank shapes and at head dim 8, and ``moe_gmm`` at S3's, as
 in phases 12 and 21.
+S4. zamba2-2.7b, then xlstm-350m, at full width and depth, one request of
+    2048 prompt tokens and 4 greedy decode steps on one rank and then on a
+    (1, 2) mesh (``ShardingPolicy()``), where every Mamba2, mLSTM and sLSTM
+    block runs tensor-parallel over its heads (``runtime/spmd.py``), its
+    decode steps fed the one-rank run's tokens: zamba2's bf16 logits
+    within 5e-2 of the largest one-rank logit and its greedy tokens equal
+    (xlstm's logits and tokens printed, not gated, as phase 17 explains);
+    exactly 54 ``mamba2_ssd`` launches a rank at (1, 2048, 40, 64) and 9
+    ``flash_attention`` launches a rank at (1, 2048, 16/16, 80) in
+    zamba2's prefill, 18 ``mlstm_chunk`` launches a rank at (1, 2048, 2,
+    512) in xlstm's; prefill s and decode ms a step printed.  zamba2 again
+    on an fp32 copy: logits within 1e-4 of the largest, tokens equal.
+    xlstm's fp32 copy amplifies rounding with depth, so at full depth each
+    of its 24 mLSTM and sLSTM blocks is held alone, tensor-parallel on the
+    one-rank prefill's input to it, within 1e-4 of the whole block's
+    largest output, and the whole model, prefill and decode steps, at 4
+    layers: logits within 1e-4 of the largest, tokens equal.  Memory freed
+    after each.  Then ``mamba2_ssd`` and
+    ``mlstm_chunk`` are timed at those per-rank shapes, as in phases 15
+    and 18 (phases 13 and 16 hold them to their plain versions).
 
 After each served model, the memory it held must be free again without
 the cyclic garbage collector (within 1 GiB of what was allocated before).
@@ -1819,6 +1839,8 @@ SSD_CASES = (
     (1, 12, 2, 64, 16, 12),
 )
 ZAMBA_SSD = (1, 2048, 80, 64, 64, 256)
+# S4's per-rank scan: 40 of zamba2's 80 SSM heads a rank on (1, 2)
+S4_SSD = (1, 2048, 40, 64, 64, 256)
 # bf16 only: the edges of the wgmma route (n not a multiple of 64 under the
 # 32-byte swizzle, p = 128 with narrow n, chunks of 64, 128 and 192, b = 2).
 SSD_WGMMA_CASES = (
@@ -1860,7 +1882,8 @@ def check_mamba2_ssd(ssd, ref, device) -> float:
     s through ``ops.mamba2_ssd`` (s = 24 pads to 32, s = 12 runs a chunk of
     12); two halves chained through the final state equal the whole, in
     fp32 and on the wgmma route; zamba2's prefill shape.  Returns the
-    largest |kernel - plain| of y at zamba2's shape (bf16)."""
+    largest |kernel - plain| of y at zamba2's shape (bf16).  S4's per-rank
+    shape is held the same way, in bf16."""
     import torch
     from repro_torch.kernels import ops
     worst = 0.0
@@ -1868,6 +1891,7 @@ def check_mamba2_ssd(ssd, ref, device) -> float:
     cases = [(c, dt) for dt in ("float32", "bfloat16") for c in SSD_CASES]
     cases += [(c, "bfloat16") for c in SSD_WGMMA_CASES]
     cases += [(ZAMBA_SSD, "float32"), (ZAMBA_SSD, "bfloat16")]
+    cases += [(S4_SSD, "bfloat16")]
     cases += [(SSD_CASES[1] + ("view",), "bfloat16")]
     for case, dt in cases:
         b, s, h, p, n, chunk = case[:6]
@@ -1877,7 +1901,7 @@ def check_mamba2_ssd(ssd, ref, device) -> float:
                               device=device)
             args = (buf[1:].view(args[0].shape).copy_(args[0]),) + args[1:]
         which = ssd.route(args[0], args[3], chunk, args[4])
-        if (dt == "bfloat16" and case in (ZAMBA_SSD, SSD_CASES[5])
+        if (dt == "bfloat16" and case in (ZAMBA_SSD, S4_SSD, SSD_CASES[5])
                 and which != "wgmma"):
             raise AssertionError(f"mamba2_ssd {case}: route {which}, not "
                                  f"wgmma")
@@ -1904,7 +1928,7 @@ def check_mamba2_ssd(ssd, ref, device) -> float:
                 raise AssertionError(f"{tag}: two calls differ")
             tol = SSD_TOL[dt]
             ey, es = _max_abs_diff(y, yp), _max_abs_diff(st, sp)
-            if case == ZAMBA_SSD:
+            if case in (ZAMBA_SSD, S4_SSD):
                 ry = ey / float(yp.float().abs().max())
                 rs = es / float(sp.abs().max())
                 if not (ry <= tol and rs <= SSD_STATE_TOL):
@@ -1912,7 +1936,7 @@ def check_mamba2_ssd(ssd, ref, device) -> float:
                         f"{tag}: max|diff| / max|plain| {ry:.3g} (y, "
                         f"tolerance {tol}), {rs:.3g} (state, "
                         f"{SSD_STATE_TOL})")
-                if dt == "bfloat16" and ini is None:
+                if dt == "bfloat16" and ini is None and case == ZAMBA_SSD:
                     worst = ey
                 log(f"{tag}: y max|diff| {ey:.3g} = {ry:.3g} of max|plain| "
                     f"(tolerance {tol}), state {es:.3g} = {rs:.3g} "
@@ -1988,9 +2012,10 @@ def check_mamba2_ssd(ssd, ref, device) -> float:
     return worst
 
 
-def time_mamba2_ssd(ssd, ref, device) -> dict:
-    """Phase 15: times per call at zamba2's prefill shape, bf16 (a ring of
-    four input sets, 88 MB, larger than the 50 MB L2), as in phase 5.  No
+def time_mamba2_ssd(ssd, ref, device, case=ZAMBA_SSD) -> dict:
+    """Phase 15: times per call at zamba2's prefill shape (or ``case``:
+    S4's per-rank shape after S4), bf16 (a ring of four input sets, 88 MB
+    at zamba2's shape, larger than the 50 MB L2), as in phase 5.  No
     single PyTorch call computes the chunked scan: ``library_ms`` is None.
     The bound counts each input read once and each output written once
     (x, dt, B, C, A, y and the final state; no initial state on the
@@ -2000,8 +2025,8 @@ def time_mamba2_ssd(ssd, ref, device) -> dict:
     ``fma`` route is timed at the same shape too, on x at an element
     offset of 1 (logged only: the served calls take ``wgmma``)."""
     import torch
-    b, s, h, p, n, chunk = ZAMBA_SSD
-    ring = [_ssd_inputs(ZAMBA_SSD, torch.bfloat16, device, seed=60 + i)
+    b, s, h, p, n, chunk = case
+    ring = [_ssd_inputs(case, torch.bfloat16, device, seed=60 + i)
             for i in range(4)]
     views = []
     for x, *rest in ring:
@@ -2027,7 +2052,7 @@ def time_mamba2_ssd(ssd, ref, device) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t["bound_ms"] = max(t_ops, t_bytes)
     t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"mamba2_ssd {ZAMBA_SSD} bf16, route "
+    log(f"mamba2_ssd {case} bf16, route "
         f"{ssd.route(ring[0][0], ring[0][3], chunk, ring[0][4])}: device "
         f"{t['ms']:.6f} ms (plain {t['plain_ms']:.6f}, no library call), "
         f"eager wrapper {t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms "
@@ -2050,6 +2075,8 @@ MLSTM_CASES = (
     (1, 12, 2, 64, 12),
 )
 XLSTM_MLSTM = (1, 2048, 4, 512, 256)
+# S4's per-rank scan: 2 of xlstm's 4 heads a rank on (1, 2)
+S4_MLSTM = (1, 2048, 2, 512, 256)
 # The bf16 wgmma route's edges: d = 64 (column tiles of 64), 128, 192, 448
 # and 512; chunks of one to four 64-row slabs; s of one chunk and of
 # several; b = 2; one and four heads.
@@ -2095,7 +2122,7 @@ def check_mlstm_chunk(mk, ref, device) -> float:
     (``fma``, which the wrapper refuses: no launch); s = 24 through
     ``ops.mlstm_chunked`` (padding to the chunk of 16); xlstm's prefill
     shape.  Returns the largest |kernel - plain| of y at xlstm's shape
-    (bf16)."""
+    (bf16).  S4's per-rank shape is held the same way, in bf16."""
     import torch
     from repro_torch.kernels import ops
     worst = 0.0
@@ -2103,11 +2130,13 @@ def check_mlstm_chunk(mk, ref, device) -> float:
     cases = [(c, dt) for dt in ("float32", "bfloat16") for c in MLSTM_CASES]
     cases += [(c, "bfloat16") for c in MLSTM_WGMMA_CASES]
     cases += [(XLSTM_MLSTM, "float32"), (XLSTM_MLSTM, "bfloat16")]
+    cases += [(S4_MLSTM, "bfloat16")]
     for case, dt in cases:
         b, s, h, d, chunk = case
         args = _mlstm_inputs(case, getattr(torch, dt), device, seed=sum(case))
         which = mk.route(args[0], chunk, args[1], args[2])
-        if dt == "bfloat16" and case == XLSTM_MLSTM and which != "wgmma":
+        if dt == "bfloat16" and case in (XLSTM_MLSTM, S4_MLSTM) and \
+                which != "wgmma":
             raise AssertionError(f"mlstm_chunk {case}: route {which}, not "
                                  f"wgmma")
         before = dict(mk.mlstm_chunk.route_launches)
@@ -2134,7 +2163,7 @@ def check_mlstm_chunk(mk, ref, device) -> float:
         tol, stol = MLSTM_TOL[dt], MLSTM_STATE_TOL[dt]
         ey = _max_abs_diff(y, yp)
         eC, en, em = (_max_abs_diff(a, c) for a, c in zip(st, sp))
-        if case == XLSTM_MLSTM:
+        if case in (XLSTM_MLSTM, S4_MLSTM):
             rel = [e / float(t.float().abs().max())
                    for e, t in ((ey, yp), (eC, sp[0]), (en, sp[1]),
                                 (em, sp[2]))]
@@ -2144,7 +2173,7 @@ def check_mlstm_chunk(mk, ref, device) -> float:
                     f"{tag}: max|diff| / max|plain| {rel[0]:.3g} (y, "
                     f"tolerance {tol}), {rel[1]:.3g} (C), {rel[2]:.3g} (n; "
                     f"{stol}), {rel[3]:.3g} (m, {MLSTM_M_TOL})")
-            if dt == "bfloat16":
+            if dt == "bfloat16" and case == XLSTM_MLSTM:
                 worst = ey
             log(f"{tag}: max|diff| / max|plain| y {ey:.3g} = {rel[0]:.3g} "
                 f"(tolerance {tol}), C {eC:.3g} = {rel[1]:.3g}, n {en:.3g} "
@@ -2220,9 +2249,10 @@ def _mlstm_fma(mk, args, chunk):
     return y
 
 
-def time_mlstm_chunk(mk, ref, device) -> dict:
-    """Phase 18: times per call at xlstm's prefill shape, bf16 (a ring of
-    four input sets, 101 MB, larger than the 50 MB L2), as in phase 5, on
+def time_mlstm_chunk(mk, ref, device, case=XLSTM_MLSTM) -> dict:
+    """Phase 18: times per call at xlstm's prefill shape (or ``case``: S4's
+    per-rank shape after S4), bf16 (a ring of four input sets, 101 MB at
+    xlstm's shape, larger than the 50 MB L2), as in phase 5, on
     the route the wrapper takes there (``wgmma``).  No single PyTorch call
     computes the chunked mLSTM: ``library_ms`` is None.  The bound counts
     each input read once and each output written once (q, k, v, the two
@@ -2232,12 +2262,12 @@ def time_mlstm_chunk(mk, ref, device) -> dict:
     same shape too, through the C entry point (logged only: the served
     calls take ``wgmma``)."""
     import torch
-    b, s, h, d, chunk = XLSTM_MLSTM
-    ring = [_mlstm_inputs(XLSTM_MLSTM, torch.bfloat16, device, seed=70 + i)
+    b, s, h, d, chunk = case
+    ring = [_mlstm_inputs(case, torch.bfloat16, device, seed=70 + i)
             for i in range(4)]
     which = mk.route(ring[0][0], chunk, ring[0][1], ring[0][2])
     if which != "wgmma":
-        raise AssertionError(f"mlstm_chunk {XLSTM_MLSTM}: route {which}")
+        raise AssertionError(f"mlstm_chunk {case}: route {which}")
     fma_ms = graph_ms(lambda i: _mlstm_fma(mk, ring[i % 4], chunk), 8)
     t = {"ms": graph_ms(lambda i: mk.mlstm_chunk(*ring[i % 4], chunk=chunk),
                         8),
@@ -2254,7 +2284,7 @@ def time_mlstm_chunk(mk, ref, device) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t["bound_ms"] = max(t_ops, t_bytes)
     t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"mlstm_chunk {XLSTM_MLSTM} bf16, route {which}: device "
+    log(f"mlstm_chunk {case} bf16, route {which}: device "
         f"{t['ms']:.6f} ms (plain {t['plain_ms']:.6f}, no library call), "
         f"eager wrapper {t['wrapper_ms']:.6f}, bound {t['bound_ms']:.6f} ms "
         f"({t['bound_by']}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); "
@@ -3135,14 +3165,18 @@ def m_sum_bound(gnorm_rel: float, m_abs: float) -> float:
 
 @contextlib.contextmanager
 def _kernel_shapes():
-    """A context recording the shapes every ``flash_attention`` and
-    ``moe_gmm`` call of ``kernels.ops`` hands its wrapper (the wrappers
-    and their counts untouched): a dict of Counters."""
+    """A context recording the shapes every ``flash_attention``,
+    ``moe_gmm``, ``mamba2_ssd`` and ``mlstm_chunk`` call of
+    ``kernels.ops`` hands its wrapper (the wrappers and their counts
+    untouched): a dict of Counters (the SSD's and the mLSTM's keyed by x's
+    and q's shape)."""
     import collections
     from repro_torch.kernels import ops
     seen = {"flash_attention": collections.Counter(),
-            "moe_gmm": collections.Counter()}
-    flash, gmm = ops._flash, ops._gmm
+            "moe_gmm": collections.Counter(),
+            "mamba2_ssd": collections.Counter(),
+            "mlstm_chunk": collections.Counter()}
+    flash, gmm, ssd, mlstm = ops._flash, ops._gmm, ops._ssd, ops._mlstm
 
     class Flash:
         @staticmethod
@@ -3158,11 +3192,23 @@ def _kernel_shapes():
                              w.shape[2])] += 1
             return gmm.moe_gmm(x, w)
 
-    ops._flash, ops._gmm = Flash, Gmm
+    class Ssd:
+        @staticmethod
+        def mamba2_ssd(x, *args, **kw):
+            seen["mamba2_ssd"][tuple(x.shape)] += 1
+            return ssd.mamba2_ssd(x, *args, **kw)
+
+    class Mlstm:
+        @staticmethod
+        def mlstm_chunk(q, *args, **kw):
+            seen["mlstm_chunk"][tuple(q.shape)] += 1
+            return mlstm.mlstm_chunk(q, *args, **kw)
+
+    ops._flash, ops._gmm, ops._ssd, ops._mlstm = Flash, Gmm, Ssd, Mlstm
     try:
         yield seen
     finally:
-        ops._flash, ops._gmm = flash, gmm
+        ops._flash, ops._gmm, ops._ssd, ops._mlstm = flash, gmm, ssd, mlstm
 
 
 def _distinct_blocks(leaf) -> list:
@@ -3420,20 +3466,33 @@ def dry_run_sharded(runs: dict) -> dict:
     return out
 
 
-def _greedy_serve(prefill, decode, params, cache_of, toks, device):
+def _greedy_serve(prefill, decode, params, cache_of, toks, device,
+                  clock: Optional[dict] = None,
+                  forced: Optional[list] = None):
     """One request: prefill, then ``S3_DECODE`` decode steps fed their own
-    greedy tokens.  Returns (each step's logits on the host, tokens)."""
+    greedy tokens (or the tokens ``forced``).  Returns (each step's logits
+    on the host, the greedy tokens); with ``clock``, records there the
+    prefill's seconds (``prefill_s``, the cache's placement for decode
+    included) and the decode steps' mean ms (``decode_ms``)."""
     import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     logits, cache = prefill(params, {"tokens": toks})
     cache = cache_of(cache)
     outs, tokens = [logits.float().cpu()], []
+    t1 = time.perf_counter()
     for i in range(S3_DECODE):
         nxt = logits[:, -1].argmax(-1)[:, None]
         tokens.append(int(nxt[0, 0]))
+        if forced is not None:
+            nxt = torch.full_like(nxt, forced[i])
         logits, cache = decode(params, cache, {"tokens": nxt},
                                S3_PROMPT + i)
         outs.append(logits.float().cpu())
     torch.cuda.synchronize()
+    if clock is not None:
+        clock["prefill_s"] = t1 - t0
+        clock["decode_ms"] = (time.perf_counter() - t1) / S3_DECODE * 1e3
     return outs, tokens
 
 
@@ -3561,6 +3620,257 @@ def serve_sharded_olmoe(device, dtype: Optional[str] = None) -> dict:
     del params, prefill, decode
     return {"seconds": seconds, "max_abs_err": err, "rel_err": err / scale,
             "params_gib": [b / 2**30 for b in per_rank], "layers": layers}
+
+
+# Phase S4: zamba2-2.7b and xlstm-350m served on (1, 2) with their Mamba2,
+# mLSTM and sLSTM blocks tensor-parallel over their heads.  The attention
+# kernel's per-rank shape in zamba2's shared block: 16 of 32 heads a rank.
+S4_FLASH = ((1, 2048, 16, 80), (1, 2048, 16, 80), False)
+S4_ARCHS = {"zamba2-2.7b": ("mamba2_ssd", "flash_attention"),
+            "xlstm-350m": ("mlstm_chunk",)}
+
+
+def _s4_want(cfg, n_ranks: int) -> dict:
+    """Each kernel's launches over the ranks in one (1, 2) prefill, by
+    shape: a rank runs the scan of every Mamba2 / mLSTM block and the
+    attention of every shared block, on its heads (decode steps run the
+    plain decode steps)."""
+    from repro_torch.models import model
+    kinds = [kind for _, _, kind in model._block_names(cfg)]
+    per = {k: kinds.count(k) * cfg.repeats
+           for k in ("mamba2", "mlstm", "shared_attn")}
+    return {"mamba2_ssd": {S4_SSD[:4]: per["mamba2"] * n_ranks}
+            if per["mamba2"] else {},
+            "flash_attention": {S4_FLASH: per["shared_attn"] * n_ranks}
+            if per["shared_attn"] else {},
+            "mlstm_chunk": {S4_MLSTM[:4]: per["mlstm"] * n_ranks}
+            if per["mlstm"] else {}}
+
+
+# the depth at which S4 holds xlstm-350m's fp32 copy whole: random-weight
+# xlstm amplifies rounding with depth (``compare_chaotic``), by about 150x
+# from 4 to 24 layers, so its full depth is held block by block instead
+S4_XLSTM_WHOLE_LAYERS = 4
+
+
+def serve_sharded_recurrent(arch: str, device, dtype: Optional[str] = None,
+                            n_layers: Optional[int] = None) -> dict:
+    """Phase S4: ``arch`` (zamba2-2.7b or xlstm-350m) at full width and
+    depth (or cut to ``n_layers``), one request of ``S3_PROMPT`` tokens and
+    ``S3_DECODE`` greedy decode steps, on one rank and then on (1, 2),
+    where its Mamba2, mLSTM and sLSTM blocks run tensor-parallel over
+    their heads; with ``dtype``, a copy of the model in that dtype.  The
+    (1, 2) run's decode steps are fed the one-rank run's greedy tokens, so
+    that every step's logits are comparable; its own greedy tokens must
+    equal the one-rank run's, and its logits lie within
+    ``SERVE_LOGIT_RTOL`` (bf16) or ``SERVE_FP32_RTOL`` (fp32) of the
+    largest one-rank logit.  xlstm-350m with random weights amplifies
+    rounding through its 24 blocks (``compare_chaotic``): its bf16 logits
+    and tokens are printed, not gated.  The sharded prefill's kernel
+    launches are held to :func:`_s4_want` exactly, by shape."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.runtime import sharding, steps
+    from repro_torch.runtime.sharding import ShardingPolicy
+    from repro_torch.runtime.spmd import ShardedModel
+    wrappers = _kernel_wrappers()
+    cfg = configs.get(arch)
+    phase, bound = f"S4 {arch}", SERVE_LOGIT_RTOL
+    if dtype is not None:
+        cfg, phase = cfg.scaled(dtype=dtype), f"S4 {arch} {dtype}"
+        bound = SERVE_FP32_RTOL
+    if n_layers is not None:
+        cfg = cfg.scaled(n_layers=n_layers)
+        phase += f" at {n_layers} layers"
+    gated = dtype is not None or arch != "xlstm-350m"
+    pol = ShardingPolicy()
+    net = model.init(cfg, 0, device)
+    toks = _s4_prompt(cfg, device)
+    length = S3_PROMPT + S3_DECODE
+    one = make_mesh((1, 1), ("data", "model"), device)
+    dec, _ = steps.build_decode_step(cfg, one, pol, batch=1,
+                                     cache_len=length)
+    one_clock: dict = {}
+    want, want_tokens = _greedy_serve(
+        steps.build_prefill_step(cfg, one, pol), dec, net,
+        lambda c: model.pad_cache(cfg, c, length), toks, device, one_clock)
+    mesh = make_mesh((1, 2), ("data", "model"), device)
+    plans = ShardedModel(cfg, mesh, pol).tensor_parallel()
+    if set(plans.values()) != {"tp"}:
+        raise AssertionError(f"{phase}: not every block tensor-parallel on "
+                             f"(1, 2): {plans}")
+    params = steps.place_params(net, sharding.param_shardings(mesh, net,
+                                                              pol))
+    del net
+    torch.cuda.empty_cache()
+    per_rank = sharding.placed_bytes(params, mesh)
+    prefill = steps.build_prefill_step(cfg, mesh, pol)
+    decode, template = steps.build_decode_step(cfg, mesh, pol, batch=1,
+                                               cache_len=length)
+    cache_sh = sharding.cache_shardings(mesh, template, pol)
+    before = {k: w.launches for k, w in wrappers.items()}
+    clock: dict = {}
+    with _kernel_shapes() as seen:
+        got, tokens = _greedy_serve(
+            prefill, decode, params,
+            lambda c: sharding.place(model.pad_cache(
+                cfg, sharding.gather(c), length), cache_sh), toks, device,
+            clock, forced=want_tokens)
+    want_launches = _s4_want(cfg, mesh.size)
+    for name, shapes in want_launches.items():
+        launched = wrappers[name].launches - before[name]
+        if dict(seen[name]) != shapes or launched != sum(shapes.values()):
+            raise AssertionError(f"{phase}: {name} launches {launched}, "
+                                 f"shapes {dict(seen[name])}, want {shapes}")
+    scale = max(float(w.abs().max()) for w in want)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    err = max(errs)
+    if gated and not (err <= bound * scale and tokens == want_tokens):
+        raise AssertionError(f"{phase}: max |logits - one rank| {err} "
+                             f"(bound {bound} x {scale}); tokens "
+                             f"{tokens} vs {want_tokens}")
+    log(f"{phase} on (1, 2), Mamba2 / mLSTM / sLSTM heads over the model "
+        f"axis: params per rank "
+        f"{', '.join(f'{b / 2**30:.3f}' for b in per_rank)} GiB; prefill of "
+        f"{S3_PROMPT} tokens {clock['prefill_s']:.3f} s (one rank "
+        f"{one_clock['prefill_s']:.3f} s), decode "
+        f"{clock['decode_ms']:.3f} ms a step (one rank "
+        f"{one_clock['decode_ms']:.3f} ms); max |logits - one rank| "
+        f"{err:.4g} ({err / scale:.3g} of the largest logit, "
+        + (f"<= {bound}" if gated else "printed, not gated")
+        + f"; by step {', '.join(f'{e / scale:.3g}' for e in errs)}); "
+        f"tokens {tokens} "
+        + ("equal" if tokens == want_tokens else f"vs {want_tokens}")
+        + "; launches " + ", ".join(f"{k} {dict(seen[k])}" for k, v in
+                                     want_launches.items() if v)
+        + f" (over {mesh.size} ranks)")
+    del params, prefill, decode
+    return {"max_abs_err": err, "rel_err": err / scale, **clock,
+            "one_rank": one_clock,
+            "params_gib": [b / 2**30 for b in per_rank]}
+
+
+def _s4_prompt(cfg, device):
+    """S4's one request: ``S3_PROMPT`` tokens drawn from seed 4."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    return torch.randint(0, cfg.vocab, (1, S3_PROMPT), generator=gen,
+                         device=device)
+
+
+def s4_blocks_alone(arch: str, device) -> dict:
+    """Phase S4: an fp32 copy of ``arch`` at full width and depth, its
+    one-rank prefill of S4's request recording the input of every mLSTM
+    and sLSTM block (:func:`_block_inputs`); then each of those blocks run
+    whole and tensor-parallel on (1, 2) on that input
+    (:func:`_tp_blocks_alone`, within ``SERVE_FP32_RTOL`` of the whole
+    block's largest output)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.runtime import sharding, steps
+    from repro_torch.runtime.sharding import ShardingPolicy
+    cfg = configs.get(arch).scaled(dtype="float32")
+    pol = ShardingPolicy()
+    net = model.init(cfg, 0, device)
+    one = make_mesh((1, 1), ("data", "model"), device)
+    with _block_inputs(net, S3_PROMPT) as inputs:
+        steps.build_prefill_step(cfg, one, pol)(
+            net, {"tokens": _s4_prompt(cfg, device)})
+    mesh = make_mesh((1, 2), ("data", "model"), device)
+    params = steps.place_params(net, sharding.param_shardings(mesh, net,
+                                                              pol))
+    del net
+    worst, n = _tp_blocks_alone(cfg, mesh, params, inputs)
+    del params, inputs
+    log(f"S4 {arch} float32: each of the {n} mLSTM / sLSTM blocks alone, "
+        f"tensor-parallel on (1, 2) against whole on the one-rank "
+        f"prefill's input to it: within {worst:.3g} of its largest output "
+        f"(<= {SERVE_FP32_RTOL})")
+    return {"blocks": n, "rel_err": worst}
+
+
+@contextlib.contextmanager
+def _block_inputs(net, seq: int):
+    """A context recording the input of every mLSTM and sLSTM block of
+    ``net`` in its ``seq``-token prefill: a list of (unit, block name,
+    block, input)."""
+    from repro_torch.models import layers as L
+    seen: list = []
+    hooks = []
+    for u, unit in enumerate(net.units):
+        for name, blk in unit.blocks.items():
+            if isinstance(blk, (L.MLSTM, L.SLSTM)):
+                hooks.append(blk.register_forward_pre_hook(
+                    lambda mod, args, u=u, name=name: seen.append(
+                        (u, name, mod, args[0].clone()))
+                    if args[0].shape[1] == seq else None))
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _tp_blocks_alone(cfg, mesh, params, inputs) -> tuple:
+    """Each recorded block (:func:`_block_inputs`) run whole and
+    tensor-parallel over ``mesh`` (``ShardedModel``'s path for it, on
+    ``params``) on the same input; fails unless every one is within
+    ``SERVE_FP32_RTOL`` of the whole block's largest output.  Returns (the
+    largest such difference, the number of blocks)."""
+    import torch
+    from repro_torch.core.mesh import ad_psum
+    from repro_torch.models.layers import MLSTM
+    from repro_torch.runtime.sharding import ShardingPolicy
+    from repro_torch.runtime.spmd import ShardedModel
+    sm = ShardedModel(cfg, mesh, ShardingPolicy())
+    worst = 0.0
+    with torch.no_grad():
+        for u, name, blk, x in inputs:
+            want = blk(x)
+            kind = "mlstm" if isinstance(blk, MLSTM) else "slstm"
+            with mesh.region():     # the ranks' streams, joined after
+                hs, _ = sm._recurrent(("layers", name), kind,
+                                      sm.shell.units[0].blocks[name],
+                                      params["layers"][name], u,
+                                      [x] * mesh.size, None, False)
+                got = ad_psum(mesh, hs, sm.T)
+            err = max(float((g - want).abs().max()) for g in got) \
+                / float(want.abs().max())
+            if not err <= SERVE_FP32_RTOL:
+                raise AssertionError(f"S4: block {name} of unit {u}, "
+                                     f"tensor-parallel, differs from the "
+                                     f"whole block by {err:.4g} of its "
+                                     f"largest output")
+            worst = max(worst, err)
+    return worst, len(inputs)
+
+
+def serve_sharded_s4(device) -> dict:
+    """Phase S4 whole: zamba2-2.7b in bf16 and on an fp32 copy;
+    xlstm-350m in bf16, its fp32 copy's blocks alone at full depth and the
+    fp32 copy whole at ``S4_XLSTM_WHOLE_LAYERS`` layers; memory freed
+    after each."""
+    import torch
+    out = {}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    runs = (("zamba2-2.7b", None, None), ("zamba2-2.7b", "float32", None),
+            ("xlstm-350m", None, None),
+            ("xlstm-350m", "float32", S4_XLSTM_WHOLE_LAYERS))
+    for arch, dtype, layers in runs:
+        tag = arch + (f" {dtype}" if dtype else "") \
+            + (f" at {layers} layers" if layers else "")
+        out[tag] = serve_sharded_recurrent(arch, device, dtype, layers)
+        freed(f"S4 {tag} (1, 2)", before)
+        if arch == "xlstm-350m" and dtype is None:
+            out[arch + " float32 blocks"] = s4_blocks_alone(arch, device)
+            freed(f"S4 {arch} float32 blocks (1, 2)", before)
+    return out
 
 
 def freed(arch: str, before: int) -> None:
@@ -3724,6 +4034,14 @@ def main() -> int:
     time_flash_attention(fa, ref, device, S_FLASH_CASES)
     time_moe_gmm(mg, ref, device, S3_GMM_PREFILL + S3_GMM_DECODE)
     log(f"sharded phases S1-S3: {time.perf_counter() - t_shard:.1f} s")
+    t_s4 = time.perf_counter()
+    s4, s4_launches = _run_counted(
+        "S4 zamba2-2.7b and xlstm-350m (1, 2)",
+        ("mamba2_ssd", "flash_attention", "mlstm_chunk"), serve_sharded_s4,
+        device)
+    s4_t = {"mamba2_ssd": time_mamba2_ssd(ssd, ref, device, S4_SSD),
+            "mlstm_chunk": time_mlstm_chunk(mk, ref, device, S4_MLSTM)}
+    log(f"sharded phase S4: {time.perf_counter() - t_s4:.1f} s")
     for version, v in ifs.items():
         log(f"wall IFSKer O1280 {version}: {v['s_per_step']:.6f} s/step, "
             f"peak allocated {v['peak_gib']:.2f} GiB")
@@ -3753,6 +4071,16 @@ def main() -> int:
     log(f"serve sharded S3 (1, 2): {s3['seconds']:.3f} s for prefill and "
         f"{S3_DECODE} decode steps; params {max(s3['params_gib']):.3f} GiB "
         f"a rank")
+    for run, v in s4.items():
+        if "prefill_s" not in v:
+            log(f"serve sharded S4 {run} (1, 2): {v['blocks']} blocks "
+                f"alone within {v['rel_err']:.3g} of the largest output")
+            continue
+        log(f"serve sharded S4 {run} (1, 2): prefill {v['prefill_s']:.3f} s "
+            f"(one rank {v['one_rank']['prefill_s']:.3f}), decode "
+            f"{v['decode_ms']:.3f} ms a step (one rank "
+            f"{v['one_rank']['decode_ms']:.3f}); max |logits - one rank| "
+            f"{v['rel_err']:.3g} of the largest")
     log(f"attention backward (plain) at {GRANITE_TRAIN}: "
         f"{grads['bwd_ms']:.3f} ms; kernel forward with lse "
         f"{grads['fwd_lse_ms']:.4f} ms, without {grads['fwd_ms']:.4f} ms")
@@ -3809,7 +4137,12 @@ def main() -> int:
                                "B4": b4["launches"][k["name"]]}
         k["shard_launches"] = {"S1": s1_launches[k["name"]],
                                "S2": s2_launches[k["name"]],
-                               "S3": s3_launches[k["name"]]}
+                               "S3": s3_launches[k["name"]],
+                               "S4": s4_launches[k["name"]]}
+        if k["name"] in s4_t:
+            k["s4_rank_shape"] = {
+                key: s4_t[k["name"]][key] for key in
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

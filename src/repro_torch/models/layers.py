@@ -344,7 +344,16 @@ class Mamba2(nn.Module):
     fp32, cast to the activation dtype before the scan but kept fp32 in
     the decode step; ``A = -exp(A_log)``; ``y += xh * D`` in the
     activation dtype; the gated RMSNorm ``norm(y * silu(z)) * gn`` in
-    fp32."""
+    fp32.
+
+    ``forward`` is :meth:`mix` then :meth:`project`.  A tensor-parallel
+    rank (``runtime/spmd.py``) calls the two with the leaves cut to its
+    heads: the per-head leaves (``wz``, ``wx``, ``wdt``, ``dt_bias``,
+    ``A_log``, ``D``, ``gn``, the rows of ``out``) hold only those heads,
+    ``conv_w``, ``conv_b`` and the ``conv`` cache the heads' ``xin``
+    channels and all of B and C; ``wB`` and ``wC`` are whole.  The heads
+    are read off ``wz``'s width.  The norm's mean square over all of
+    ``d_inner`` is the sum of every rank's partial sum of squares."""
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
@@ -366,18 +375,21 @@ class Mamba2(nn.Module):
         self.gn = _param((din,), f32, device)
         self.out = _param((din, d), dt, device)
 
-    def forward(self, x: torch.Tensor, *, cache: Cache = None,
-                decode: bool = False,
-                impl: Optional[str] = None) -> torch.Tensor:
-        """``cache`` is this block's ``state`` (B, H, P, n) fp32 and
-        ``conv`` (B, K-1, d_inner + 2n), written IN PLACE: prefill stores
-        the final state and the last K-1 conv inputs; a ``decode`` step
-        (S == 1) starts from them and updates both."""
+    def mix(self, x: torch.Tensor, *, cache: Cache = None,
+            decode: bool = False, impl: Optional[str] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Up to the gated norm: (g = y · silu(z) fp32 (B, S, the heads'
+        channels), its sum of squares over those channels (B, S, 1)).
+
+        ``cache`` is this block's ``state`` (B, H, P, n) fp32 and ``conv``
+        (B, K-1, channels), written IN PLACE: prefill stores the final
+        state and the last K-1 conv inputs; a ``decode`` step (S == 1)
+        starts from them and updates both."""
         cfg = self.cfg
         B, S, _ = x.shape
-        din, n, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-        P = din // H
+        n, P = cfg.ssm_state, cfg.d_inner // cfg.n_ssm_heads
         z = x @ self.wz
+        c = z.shape[-1]
         dt = F.softplus((x @ self.wdt).float() + self.dt_bias)
         A = -torch.exp(self.A_log)
         xbc = torch.cat([x @ self.wx, x @ self.wB, x @ self.wC], dim=-1)
@@ -385,8 +397,8 @@ class Mamba2(nn.Module):
         tail = cache["conv"] if decode else None
         xbc, new_tail = _causal_conv(xbc, self.conv_w, self.conv_b, tail)
         xbc = _silu(xbc)
-        xin, Bp, Cp = torch.split(xbc, [din, n, n], dim=-1)
-        xh = xin.reshape(B, S, H, P)
+        xin, Bp, Cp = torch.split(xbc, [c, n, n], dim=-1)
+        xh = xin.reshape(B, S, c // P, P)
         if step:
             state, y = ops.ssd_decode_step(cache["state"], xh[:, 0],
                                            dt[:, 0], A, Bp[:, 0], Cp[:, 0])
@@ -401,11 +413,24 @@ class Mamba2(nn.Module):
             cache["state"].copy_(state)
             cache["conv"].copy_(new_tail)
         y = y + xh * self.D[None, None, :, None].to(x.dtype)
-        y = y.reshape(B, S, din)
+        y = y.reshape(B, S, c)
         g = (y * _silu(z)).float()
-        g = g * torch.rsqrt(g.square().mean(dim=-1, keepdim=True)
-                            + cfg.norm_eps) * self.gn
-        return g.to(x.dtype) @ self.out
+        return g, g.square().sum(dim=-1, keepdim=True)
+
+    def project(self, g: torch.Tensor, sumsq: torch.Tensor) -> torch.Tensor:
+        """The gated norm's rest and the output projection, given the sum
+        of squares over all of ``d_inner``: ``norm(g) · gn @ out`` (on a
+        tensor-parallel rank, a partial sum)."""
+        g = g * torch.rsqrt(sumsq / self.cfg.d_inner + self.cfg.norm_eps) \
+            * self.gn
+        return g.to(self.out.dtype) @ self.out
+
+    def forward(self, x: torch.Tensor, *, cache: Cache = None,
+                decode: bool = False,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """:meth:`mix` (``cache`` as there) then :meth:`project`."""
+        return self.project(*self.mix(x, cache=cache, decode=decode,
+                                      impl=impl))
 
 
 # ---------------------------------------------------------------------------
@@ -418,7 +443,15 @@ class MLSTM(nn.Module):
     ``xi @ w{i,f} + b{i,f}``; the chunked scan through
     ``ops.mlstm_chunked`` (the Hopper kernel on the card) or, for a decode
     step, ``ops.mlstm_decode_step``; the fp32 RMS norm times ``gn``; then
-    ``× silu(z)`` and ``@ wd``."""
+    ``× silu(z)`` and ``@ wd``.
+
+    ``forward`` is :meth:`mix` then :meth:`project`.  A tensor-parallel
+    rank (``runtime/spmd.py``) calls the two with the leaves cut to its
+    heads: the per-head leaves (the columns of ``wq``, ``wk``, ``wv``,
+    ``wi``, ``wf``, ``bi``, ``bf``, ``gn``, the rows of ``wd``) hold only
+    those heads, and ``wup`` the heads' ``z`` columns and all of ``xi``'s.
+    The heads are read off ``wi``'s width.  The norm's mean square over
+    all of ``din`` is the sum of every rank's partial sum of squares."""
 
     CONSTANTS = {"bi": 0.0, "bf": 3.0, "gn": 1.0}   # open forget gates
 
@@ -440,19 +473,22 @@ class MLSTM(nn.Module):
         self.gn = _param((din,), f32, device)
         self.wd = _param((din, d), dt, device)
 
-    def forward(self, x: torch.Tensor, *, cache: Cache = None,
-                decode: bool = False,
-                impl: Optional[str] = None) -> torch.Tensor:
-        """``cache`` is this block's ``C`` (B, H, dh, dh), ``n`` (B, H, dh)
+    def mix(self, x: torch.Tensor, *, cache: Cache = None,
+            decode: bool = False, impl: Optional[str] = None
+            ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """Up to the norm: ((y fp32, z), y's sum of squares over the
+        heads' channels (B, S, 1)).
+
+        ``cache`` is this block's ``C`` (B, H, dh, dh), ``n`` (B, H, dh)
         and ``m`` (B, H), fp32, written IN PLACE: prefill stores the final
         state; a ``decode`` step starts from it.  A stabiliser of -inf is
         kept as -1e30 in the cache, as the reference's."""
         cfg = self.cfg
         B, S, d = x.shape
-        H = cfg.n_heads
         din = self.wq.shape[0]
-        dh = din // H
-        z, xi = torch.chunk(x @ self.wup, 2, dim=-1)
+        H, dh = self.wi.shape[1], din // cfg.n_heads
+        z, xi = torch.split(x @ self.wup, [self.wup.shape[1] - din, din],
+                            dim=-1)
         # the scale rounded to the activation dtype first, as XLA rounds
         # the reference's weakly typed Python float
         scale = torch.tensor(dh ** -0.5, dtype=x.dtype)
@@ -480,10 +516,25 @@ class MLSTM(nn.Module):
             cache["C"].copy_(C)
             cache["n"].copy_(n)
             cache["m"].copy_(torch.where(torch.isfinite(m), m, NEG))
-        y = y.reshape(B, S, din).float()
-        y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True)
-                            + cfg.norm_eps) * self.gn
-        return (y.to(x.dtype) * _silu(z)) @ self.wd
+        y = y.reshape(B, S, H * dh).float()
+        return (y, z), y.square().sum(dim=-1, keepdim=True)
+
+    def project(self, yz: Tuple[torch.Tensor, torch.Tensor],
+                sumsq: torch.Tensor) -> torch.Tensor:
+        """The norm's rest, the gate and the down projection, given the
+        sum of squares over all of ``din`` (on a tensor-parallel rank, a
+        partial sum)."""
+        y, z = yz
+        y = y * torch.rsqrt(sumsq / self.wq.shape[0] + self.cfg.norm_eps) \
+            * self.gn
+        return (y.to(z.dtype) * _silu(z)) @ self.wd
+
+    def forward(self, x: torch.Tensor, *, cache: Cache = None,
+                decode: bool = False,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """:meth:`mix` (``cache`` as there) then :meth:`project`."""
+        return self.project(*self.mix(x, cache=cache, decode=decode,
+                                      impl=impl))
 
 
 # ---------------------------------------------------------------------------
@@ -505,7 +556,16 @@ class SLSTM(nn.Module):
     biases are computed once for the whole sequence, and the step keeps
     its state head-major, (H, B, dh), so that the four recurrent products
     are one batched matmul.  Plain torch, no kernel: the Python loop runs
-    S steps."""
+    S steps.
+
+    ``forward`` is :meth:`mix`, :meth:`norm` and :meth:`ffn`.  A
+    tensor-parallel rank (``runtime/spmd.py``; the recurrence is
+    block-diagonal by head) calls :meth:`mix` and :meth:`norm` with the
+    leaves cut to its heads (the columns of ``w{i,f,z,o}``, ``b{i,f,z,o}``
+    and ``gn``, ``r{i,f,z,o}``'s heads; read off ``ri``'s heads), and the
+    norm's mean square over all of ``d`` is the sum of every rank's partial
+    sum of squares; :meth:`ffn` takes all of ``d``, with ``wu``'s columns
+    and ``wd2``'s rows of the rank (a partial sum)."""
 
     CONSTANTS = {"bi": 0.0, "bf": 1.0, "bz": 0.0, "bo": 0.0, "gn": 1.0}
 
@@ -526,23 +586,25 @@ class SLSTM(nn.Module):
         # the reference draws r_g at fan-in dh, not shape[0] = H
         self.init_fan_in = {f"r{g}": dh for g in _GATES}
 
-    def forward(self, x: torch.Tensor, *, cache: Cache = None,
-                decode: bool = False) -> torch.Tensor:
-        """``cache`` is this block's ``c``, ``n``, ``h``, ``m``, each (B, d)
-        fp32, written IN PLACE: prefill starts from the zero state (n = 1)
-        and stores the final one; a ``decode`` step starts from it."""
-        cfg = self.cfg
-        B, S, d = x.shape
-        H = cfg.n_heads
-        dh = d // H
+    def mix(self, x: torch.Tensor, *, cache: Cache = None,
+            decode: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The recurrence: (h over the sequence fp32 (B, S, the heads'
+        channels), its sum of squares over those channels (B, S, 1)).
+
+        ``cache`` is this block's ``c``, ``n``, ``h``, ``m``, each (B, the
+        heads' channels) fp32, written IN PLACE: prefill starts from the
+        zero state (n = 1) and stores the final one; a ``decode`` step
+        starts from it."""
+        B, S, _ = x.shape
+        H, dh = self.ri.shape[0], self.ri.shape[1]
         xf = x.float()
 
-        def head_major(t):          # (..., B, d) -> (..., H, B, dh)
+        def head_major(t):          # (..., B, H dh) -> (..., H, B, dh)
             return t.unflatten(-1, (H, dh)).transpose(-2, -3)
 
         # (S, 4, H, B, dh): x_t @ w_g + b_g of every step and gate
         gx = torch.stack([xf @ getattr(self, f"w{g}") + getattr(self, f"b{g}")
-                          for g in _GATES], dim=0)          # (4, B, S, d)
+                          for g in _GATES], dim=0)          # (4, B, S, H dh)
         gx = head_major(gx.transpose(1, 2)).transpose(0, 1).contiguous()
         R = torch.cat([getattr(self, f"r{g}") for g in _GATES], dim=-1)
         if decode:
@@ -567,12 +629,25 @@ class SLSTM(nn.Module):
             hs[t] = h
         if cache is not None:
             for k, t in (("c", c), ("n", n), ("h", h), ("m", m)):
-                cache[k].copy_(t.transpose(0, 1).reshape(B, d))
-        y = hs.permute(2, 0, 1, 3).reshape(B, S, d)
-        y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True)
-                            + cfg.norm_eps) * self.gn
-        y = y.to(x.dtype)
+                cache[k].copy_(t.transpose(0, 1).reshape(B, H * dh))
+        y = hs.permute(2, 0, 1, 3).reshape(B, S, H * dh)
+        return y, y.square().sum(dim=-1, keepdim=True)
+
+    def norm(self, y: torch.Tensor, sumsq: torch.Tensor) -> torch.Tensor:
+        """The RMS norm of ``y`` given the sum of squares over all of
+        ``d``, times ``gn``, in the activation dtype."""
+        y = y * torch.rsqrt(sumsq / self.cfg.d_model + self.cfg.norm_eps) \
+            * self.gn
+        return y.to(self.wu.dtype)
+
+    def ffn(self, y: torch.Tensor) -> torch.Tensor:
+        """``gelu(y @ wu) @ wd2`` of the normed ``y`` (B, S, d)."""
         return F.gelu(y @ self.wu, approximate="tanh") @ self.wd2
+
+    def forward(self, x: torch.Tensor, *, cache: Cache = None,
+                decode: bool = False) -> torch.Tensor:
+        """:meth:`mix` (``cache`` as there), :meth:`norm`, :meth:`ffn`."""
+        return self.ffn(self.norm(*self.mix(x, cache=cache, decode=decode)))
 
 
 # ---------------------------------------------------------------------------

@@ -33,9 +33,27 @@ and gives the single-device model's numbers up to summation order:
   before the combine, which is then bitwise the one-rank combine.  When E
   does not divide, the rule table shards the experts' ffn dimension and
   the expert products are tensor-parallel (partial sums).
-* Mamba2, mLSTM and sLSTM blocks store their weights by the rule table
-  but gather every block at use and compute the block whole on every model
-  rank: the same numbers, without tensor parallelism inside them.
+* **TP over the heads** of Mamba2, mLSTM and sLSTM blocks when their
+  heads (``n_ssm_heads``, ``n_heads``) divide the model axis and the rule
+  table puts the axis on their head-major columns (otherwise a block
+  gathers its weights and runs whole on every model rank).  A rank keeps
+  its column blocks of the head-major projections (``wz``/``wx``;
+  ``wq``/``wk``/``wv``/``wi``/``wf``; ``w{i,f,z}``, ``r{i,f,z,o}`` and
+  ``wu``) and its row blocks of the output projections (``out``, ``wd``,
+  ``wd2``); its other leaves (``wB``/``wC``/``wdt``, the conv, the
+  per-head vectors and norm scales, ``wup``, and the sLSTM's ``wo``, which
+  the rule table places by rows as attention's ``wo``) are gathered whole
+  and cut here to what the rank computes on (``_HEAD_CUTS``): the block's
+  methods take the leaves as given, so the layout is decided here alone.
+  The block's ``mix`` runs the rank's heads' scan (``ops.mamba2_ssd`` / ``ops.mlstm_chunked`` on H / T heads;
+  the sLSTM's loop on its heads, with no collective inside it) up to the
+  norm's partial sum of squares, one ``psum`` of that (B, S, 1) fp32
+  tensor gives every rank the mean square over all heads, and the rest of
+  the block gives a partial output added over the model axis; the sLSTM
+  all-gathers its normed output over the model axis first, since ``wu`` is
+  column-sharded.  Mamba2 computes B and C whole on every model rank,
+  the mLSTM all of ``xi`` (``wup``'s column blocks hold ``z`` on the first
+  ranks and ``xi`` on the last, so it is gathered either way).
 
 Every loss term is counted on one rank only: the LM head runs on the
 rank's slice of the sequence (the reference's sequence-sharded logits) and
@@ -47,8 +65,15 @@ ranks' losses differentiates to the single-device gradient.
 Decode caches are placed by ``cache_shardings``: a block reads and
 writes its cache in place where the rank's block is exactly what the
 block computes on (KV heads over the model axis for a tensor-parallel
-attention), and otherwise gathers what it needs first and writes its part
-back after.
+attention; a tensor-parallel Mamba2's SSM state, an mLSTM's C, n, m and an
+sLSTM's c, n, h, m, heads over the model axis), and otherwise gathers
+what it needs first and writes its part back after.  The Mamba2 conv
+cache is the exception under TP: (R, B, K-1, d_inner + 2n), placed with
+the model axis on its K-1 dimension, which it does not divide, so every
+model rank holds all of it, while a rank computes on only its heads'
+``xin`` channels and B and C.  Each rank takes a copy of those and writes
+back to every holder its ``xin`` channels, and model rank 0 the B and C
+channels.
 """
 
 from __future__ import annotations
@@ -225,6 +250,45 @@ _TP_ATTN = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
 _TP_MLP = {"wg": 1, "wu": 1, "wd": 0}
 _EP = {"wg": 0, "wu": 0, "wd": 0}
 _TP_EXPERTS = {"wg": 2, "wu": 2, "wd": 1}
+# heads over the model axis inside the recurrent blocks: the column blocks
+# of the head-major projections, the row blocks of the output projections
+# (the sLSTM's ``wo`` is gathered: the rule table's ``wo$`` places it by
+# rows, as attention's)
+_TP_HEADS = {
+    MAMBA2: {"wz": 1, "wx": 1, "out": 0},
+    MLSTM: {"wq": 1, "wk": 1, "wv": 1, "wi": 1, "wf": 1, "wd": 0},
+    SLSTM: {"wi": 1, "wf": 1, "wz": 1, "ri": 0, "rf": 0, "rz": 0, "ro": 0,
+            "wu": 1, "wd2": 0},
+}
+# what a tensor-parallel rank takes of such a block's gathered leaves, on
+# their last dimension: its heads, its heads' channels, or its heads'
+# channels and all that follows every head's channels ("channels+": the
+# conv's B and C channels, ``wup``'s xi half); the rest it takes whole
+_HEAD_CUTS = {
+    MAMBA2: {"wdt": "heads", "dt_bias": "heads", "A_log": "heads",
+             "D": "heads", "gn": "channels", "conv_w": "channels+",
+             "conv_b": "channels+"},
+    MLSTM: {"bi": "heads", "bf": "heads", "gn": "channels",
+            "wup": "channels+"},
+    SLSTM: {"wo": "channels", "bi": "channels", "bf": "channels",
+            "bz": "channels", "bo": "channels", "gn": "channels"},
+}
+# the decode cache leaves that hold the heads of a recurrent block: the
+# dimension of the heads (or of the heads' channels) in the leaf
+_CACHE_HEADS = {MAMBA2: {"state": 2}, MLSTM: {"C": 2, "n": 2, "m": 2},
+                SLSTM: {"c": 2, "n": 2, "h": 2, "m": 2}}
+
+
+class _Method(torch.nn.Module):
+    """``module.<name>`` as a forward, so that ``functional_call`` runs a
+    block's method other than ``forward`` with a rank's tensors."""
+
+    def __init__(self, module: torch.nn.Module, name: str) -> None:
+        super().__init__()
+        self.m, self.name = module, name
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.m, self.name)(*args, **kwargs)
 
 
 class ShardedModel:
@@ -248,6 +312,7 @@ class ShardedModel:
         self.keep = self._keep_dims()
         # the use plans, one per (sharding, shape, kept dimension)
         self._plans: Dict[Tuple[Any, ...], _UsePlan] = {}
+        self._methods: Dict[Tuple[int, str], _Method] = {}
 
     # -- plans ----------------------------------------------------------------
     def _spec_has(self, sh: NamedSharding, dim: int) -> bool:
@@ -287,12 +352,40 @@ class ShardedModel:
                 s = sh["layers"][name]
                 out[("layers", name)] = _EP if self._fits(s, _EP) else \
                     _TP_EXPERTS if self._fits(s, _TP_EXPERTS) else {}
+            elif kind in _TP_HEADS:
+                keep = _TP_HEADS[kind]
+                out[("layers", name)] = keep if self._heads_divide(kind) \
+                    and self._fits(sh["layers"][name], keep) else {}
         if "shared" in sh:
             out[("shared", "attn")] = _TP_ATTN if heads_ok and self._fits(
                 sh["shared"]["attn"], _TP_ATTN) else {}
             out[("shared", "mlp")] = _TP_MLP if self._fits(
                 sh["shared"]["mlp"], _TP_MLP) else {}
         return out
+
+    def _n_heads(self, kind: str) -> int:
+        cfg = self.cfg
+        return cfg.n_ssm_heads if kind == MAMBA2 else cfg.n_heads
+
+    def _heads_divide(self, kind: str) -> bool:
+        return self.T is not None and self._n_heads(kind) % self.nT == 0
+
+    def _heads(self, kind: str, r: int) -> Tuple[int, int]:
+        """Rank ``r``'s heads of a tensor-parallel recurrent block."""
+        n = self._n_heads(kind) // self.nT
+        return self._t(r) * n, (self._t(r) + 1) * n
+
+    def _cut(self, kind: str, t: torch.Tensor, how: str, width: int,
+             r: int) -> torch.Tensor:
+        """Rank ``r``'s part of ``t`` on its last dimension, ``how`` as in
+        ``_HEAD_CUTS``; ``width`` is the channels of all heads."""
+        h0, h1 = self._heads(kind, r)
+        if how == "heads":
+            return t[..., h0:h1]
+        per = width // self._n_heads(kind)
+        if how == "channels":
+            return t[..., h0 * per:h1 * per]
+        return torch.cat([t[..., h0 * per:h1 * per], t[..., width:]], dim=-1)
 
     def tensor_parallel(self) -> Dict[str, str]:
         """How each block kind runs over the model axis: ``"tp"``,
@@ -368,29 +461,60 @@ class ShardedModel:
         return out
 
     # -- caches ---------------------------------------------------------------
-    def _cache_plan(self, leaf: Placed, u: int, r: int, rows: Tuple[int, int],
-                    heads: Optional[Tuple[int, int]]) -> Box:
-        """Rank ``r``'s use box of a cache leaf (R, B, ...) in unit ``u``:
-        its batch rows, its heads when given (dim 3), the rest whole."""
-        box = [(u, u + 1), rows] + [(0, n) for n in leaf.shape[2:]]
-        if heads is not None:
-            box[3] = heads
-        return tuple(box)
+    def _cache_parts(self, kind: str, key, heads):
+        """The parts of a tensor-parallel block's cache leaves its ranks
+        compute on, as :meth:`_cache_uses` takes them: (per leaf, its
+        dimension of heads and each rank's range on it; per leaf, each
+        rank's (ranges on its last dimension that it takes, of those the
+        ones it writes back)), or (None, None) for a block run whole.
+        Attention's are its KV heads (``heads``)."""
+        if not self.keep.get(key):
+            return None, None
+        if kind not in _CACHE_HEADS:
+            return {"k": (3, heads), "v": (3, heads)}, None
+        cfg = self.cfg
+        spans = [self._heads(kind, r) for r in range(self.mesh.size)]
+        per = cfg.d_model // cfg.n_heads if kind == SLSTM else 1
+        parts = {k: (dim, [(a * per, b * per) for a, b in spans])
+                 for k, dim in _CACHE_HEADS[kind].items()}
+        if kind != MAMBA2:
+            return parts, None
+        # the conv cache, (R, B, K-1, din + 2n), has the model axis on its
+        # K-1 dimension, which it does not divide, so every model rank
+        # holds all of it; a rank computes on its xin channels and B and C
+        # ("channels+"): it takes a copy and writes back to every holder
+        # its xin channels, and model rank 0 the B and C channels (every
+        # rank's are the same)
+        P, din = cfg.d_inner // cfg.n_ssm_heads, cfg.d_inner
+        bc = (din, din + 2 * cfg.ssm_state)
+        cuts = [([(a * P, b * P), bc],
+                 [(a * P, b * P)] + ([bc] if self._t(r) == 0 else []))
+                for r, (a, b) in enumerate(spans)]
+        return parts, {"conv": cuts}
 
-    def _cache_uses(self, cache: Dict[str, Placed], u: int, rows, heads):
+    def _cache_uses(self, cache: Dict[str, Placed], u: int, rows,
+                    parts=None, cuts=None):
         """Each rank's use of one block's cache in unit ``u`` (a dict of
         tensors) and what to write back after the block: in-place views
-        where a rank's block is exactly its use, else gathered copies."""
+        where a rank's block is exactly its use, else gathered copies.  A
+        rank's use is its batch rows of the unit, and whole on every other
+        dimension but those ``parts`` gives (:meth:`_cache_parts`); for a
+        leaf in ``cuts`` it is the ranges it takes on the last dimension,
+        in a row, and it writes back only the ranges ``cuts`` says."""
         mesh = self.mesh
+        parts, cuts = parts or {}, cuts or {}
         uses: List[Dict[str, torch.Tensor]] = [{} for _ in range(mesh.size)]
         backs = []
         for k, leaf in cache.items():
             for r in range(mesh.size):
-                use = self._cache_plan(leaf, u, r, rows[r],
-                                       heads[r] if k in ("k", "v") and
-                                       heads is not None else None)
+                use = [(u, u + 1), rows[r]] + [(0, n) for n in leaf.shape[2:]]
+                if k in parts:
+                    dim, ranges = parts[k]
+                    use[dim] = ranges[r]
+                use = tuple(use)
                 own = leaf.box(r)
-                if _inside(use, own) and use[1:] == own[1:]:
+                if k not in cuts and _inside(use, own) and \
+                        use[1:] == own[1:]:
                     uses[r][k] = leaf.blocks[r][u]
                     continue
                 with mesh.on(r):
@@ -405,18 +529,36 @@ class ShardedModel:
                     _move(mesh, _slice(leaf.blocks[q],
                                        _shift(ov, leaf.box(q))), q, r,
                           _slice(t, _shift(ov, use)))
-                uses[r][k] = t[0]
-                backs.append((leaf, r, use, t))
+                if k not in cuts:
+                    uses[r][k] = t[0]
+                    backs.append((leaf, r, use, t, [use], None))
+                    continue
+                take, write = cuts[k][r]
+                with mesh.on(r):
+                    uses[r][k] = torch.cat([t[0][..., a:b] for a, b in take],
+                                           dim=-1)
+                backs.append((leaf, r, use, t,
+                              [use[:-1] + (w,) for w in write],
+                              (uses[r][k], take)))
         return uses, backs
 
     def _write_back(self, backs) -> None:
         mesh = self.mesh
-        for leaf, r, use, t in backs:
-            for q in range(mesh.size):
-                ov = _overlap(use, leaf.box(q))
-                if ov is not None:
-                    _move(mesh, _slice(t, _shift(ov, use)), r, q,
-                          _slice(leaf.blocks[q], _shift(ov, leaf.box(q))))
+        for leaf, r, use, t, boxes, cut in backs:
+            if cut is not None:     # the ranges taken, back into the copy
+                local, take = cut
+                with mesh.on(r):
+                    at = 0
+                    for a, b in take:
+                        t[0][..., a:b].copy_(local[..., at:at + b - a])
+                        at += b - a
+            for box in boxes:
+                for q in range(mesh.size):
+                    ov = _overlap(box, leaf.box(q))
+                    if ov is not None:
+                        _move(mesh, _slice(t, _shift(ov, use)), r, q,
+                              _slice(leaf.blocks[q],
+                                     _shift(ov, leaf.box(q))))
 
     # -- blocks ---------------------------------------------------------------
     def _norm(self, tree, repeat, xs, module) -> List[torch.Tensor]:
@@ -479,6 +621,44 @@ class ShardedModel:
             (p / n_rows) * (c / n_rows)).sum(), p_sum, c_sum)
         return hs, keep is _TP_EXPERTS, aux
 
+    def _call(self, module, name: str, w, *args, **kwargs):
+        """``module.<name>(*args, **kwargs)`` with a rank's tensors ``w``."""
+        bound = self._methods.get((id(module), name))
+        if bound is None:
+            bound = self._methods[(id(module), name)] = _Method(module, name)
+        return functional_call(bound, {f"m.{k}": v for k, v in w.items()},
+                               args, kwargs)
+
+    def _recurrent(self, key, kind, module, tree, repeat, xin, caches,
+                   decode: bool):
+        """A Mamba2, mLSTM or sLSTM block: whole on every model rank, or
+        tensor-parallel over its heads (the module's note); returns the
+        per-rank outputs and whether they are partial sums."""
+        mesh = self.mesh
+        keep = self.keep[key]
+        ws = self._use_tree(tree, keep, repeat)
+        cs = caches if caches is not None else [None] * mesh.size
+        if not keep:
+            return self._per_rank(lambda r, w, x, c: functional_call(
+                module, w, (x,), dict(cache=c, decode=decode)),
+                ws, xin, cs), False
+        cuts = _HEAD_CUTS[kind]
+        ws = self._per_rank(lambda r, w: {k: self._cut(
+            kind, t, cuts[k], w["gn"].shape[-1], r) if k in cuts else t
+            for k, t in w.items()}, ws)
+        mixed = self._per_rank(lambda r, w, x, c: self._call(
+            module, "mix", w, x, cache=c, decode=decode), ws, xin, cs)
+        # the norm's sum of squares over every head
+        sumsq = ad_psum(mesh, [m[1] for m in mixed], self.T)
+        if kind == SLSTM:
+            ys = self._per_rank(lambda r, w, m, q: self._call(
+                module, "norm", w, m[0], q), ws, mixed, sumsq)
+            ys = ad_all_gather(mesh, ys, self.T, dim=2)
+            return self._per_rank(lambda r, w, y: self._call(
+                module, "ffn", w, y), ws, ys), True
+        return self._per_rank(lambda r, w, m, q: self._call(
+            module, "project", w, m[0], q), ws, mixed, sumsq), True
+
     def _shared(self, tree, xs, x0s, sp, *, angles, caches, cache_index):
         """Zamba2's shared block: concat(x, x0) @ win, attention and an
         MLP, each with its residual; returns its output in the residual's
@@ -519,8 +699,9 @@ class ShardedModel:
             if cache is not None and name in cache:
                 key = ("shared", "attn") if kind == SHARED_ATTN \
                     else ("layers", name)
-                hd = heads if self.keep.get(key) else None
-                caches, backs = self._cache_uses(cache[name], u, rows, hd)
+                caches, backs = self._cache_uses(
+                    cache[name], u, rows,
+                    *self._cache_parts(kind, key, heads))
             if kind == SHARED_ATTN:
                 hs = self._shared(params["shared"], xs, x0s, sp,
                                   angles=angles, caches=caches,
@@ -548,11 +729,9 @@ class ShardedModel:
                                            u, xin, rows_split)
                 aux = self._per_rank(lambda r, x, y: x + y, aux, a)
             else:
-                ws = self._use_tree(tree, {}, u)
-                cs = caches if caches is not None else [None] * mesh.size
-                hs = self._per_rank(lambda r, w, x, c: functional_call(
-                    module, w, (x,), dict(cache=c, decode=decode)),
-                    ws, xin, cs)
+                hs, partial = self._recurrent(("layers", name), kind,
+                                              module, tree, u, xin, caches,
+                                              decode)
             self._write_back(backs)
             hs = self._to_residual(hs, partial, sp)
             xs = self._per_rank(lambda r, x, h: x + h, xs, hs)

@@ -22,9 +22,13 @@ against the JAX package's.
 * Every smoke cell of all ten archs runs on (2, 2), port side only; the
   per-rank argument bytes follow from the rule table's specs (which
   ``tests/test_torch_sharding.py`` holds equal to the reference's); the
-  per-rank FLOP excess over one rank's is printed (zamba2 and xlstm
-  compute their Mamba2, mLSTM and sLSTM blocks whole on every model
-  rank).
+  train cell's FLOPs summed over the four ranks, over one rank's, are
+  printed and held to at most :data:`MAX_FLOP_EXCESS`.  Measured: 1.056
+  for zamba2 and 1.076 for xlstm, whose Mamba2, mLSTM and sLSTM blocks
+  run tensor-parallel over their heads, with the B / C projections
+  and the mLSTM's ``xi`` half of ``wup`` computed on every model rank
+  (1.756 and 1.968 when those blocks ran whole on every model rank), and
+  1.002-1.011 for the eight attention / MLP / MoE archs.
 * ``make_production_mesh``: the reference's shape, axis names and rank
   order, on ``meta`` with no stream.
 """
@@ -54,6 +58,8 @@ from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# the largest FLOPs summed over a (2, 2) mesh's ranks over one rank's
+MAX_FLOP_EXCESS = 1.3
 # (arch, kind, seq or cache length, global batch): the cells held to the
 # reference
 CELLS = (("granite-3-2b", "train", 64, 8), ("olmoe-1b-7b", "prefill", 64, 4),
@@ -425,6 +431,7 @@ def test_every_smoke_cell_runs(arch):
                   f"rank's = {excess:.3f}; per rank "
                   f"{rec['cost']['flops']:.4e} against "
                   f"{one['cost']['flops'] / 4:.4e} ideal")
+            assert excess <= MAX_FLOP_EXCESS, (arch, excess)
 
 
 @pytest.mark.parametrize("shape", [(4, 1), (2, 2)], ids=["4x1", "2x2"])

@@ -12,11 +12,7 @@ JSONs of metrics:
   places them) over the synthetic stream's first 8 x 32 batch;
 * for smoke zamba2-2.7b and xlstm-350m, the same from the single-device
   step (a (1, 1) mesh): their GSPMD steps take 13-17 s each to compile
-  on the CPU, and the reference's own (4, 2) step of zamba2 differs from its
-  single-device step beyond the bounds below on three Mamba2 weights
-  whose gradient is near zero (AdamW's first step is about lr · g / (|g|
-  + eps) there, so summation order moves it), while the port's steps on
-  every mesh hold the single-device step's bounds;
+  on the CPU;
 * for all four, the logits of one prefill of 2 x 16 tokens and four
   teacher-forced decode steps on (2, 2) (``ShardingPolicy()``);
 * a smoke granite-3-2b state (bf16 parameters) placed on (4, 2), saved.
@@ -26,15 +22,30 @@ The port restores each initial state, places it by its own
 same step under ``ShardingPolicy()`` (remat ``"dots"``: the port's
 remat gives the same gradients): loss within rtol 2e-5, grad norm within
 rtol 2e-4 and every parameter within atol 1e-5 / rtol 1e-4 of the
-reference's (``tests/test_distributed.py``'s bounds).  For xlstm the
-parameters are compared where the reference's gradient is zero or at least
-``10 * eps``: on about ten mLSTM elements with 0 < |g| < 10 eps, AdamW's
-first step lr * g / (|g| + eps) moves by lr * dg / eps under a change of
-summation order dg ~ 1e-9 (up to 6e-5 here), and the port's one-rank step
-misses the reference's there as its sharded steps do (ROADMAP section 3);
-the test prints how many elements the rule leaves out (295, 0.11 %) and
-fails if they are more than 0.2 % of the parameters.  The serving steps'
-logits are within 1e-4 of the reference's and their greedy tokens equal.
+reference's (``tests/test_distributed.py``'s bounds).  zamba2 and xlstm
+also take the step on one rank (a (1, 1) mesh), and there the parameter
+bounds measure AdamW's amplification more than the layout: the first
+step moves a parameter by about lr * g / (|g| + eps), so where 0 < |g| <
+10 eps a change of summation order dg moves it by up to lr * dg / eps.
+The reference's own head-sharded (4, 2) GSPMD step of smoke zamba2
+fails those bounds against its single-device step on three Mamba2
+weights whose gradient is that small, and the port's Mamba2, mLSTM and
+sLSTM blocks run tensor-parallel over their heads, which changes the
+summation order of exactly those gradients.  So for zamba2 and xlstm the
+parameters are compared where the reference's gradient is 0 or at least
+``10 * eps`` (the test prints how many elements the rule leaves out:
+192 of 232,228 for zamba2, 295 of 278,552 for xlstm, and fails above 0.2
+%), and every element of every gradient leaf (the port's first AdamW
+``m / (1 - b1)``, the reference's the same) is held within 1e-4 |g| +
+1e-3 max|g_leaf|.  On every mesh, (1, 1) included, the port's gradients
+lie within 0.015 (zamba2) and 0.071 (xlstm) of that bound (0.011 and
+0.068 before the blocks became tensor-parallel): the port's one-rank
+step differs from the reference's by up to 1.2e-5 (zamba2) and 7.0e-5
+(xlstm) of a leaf's largest gradient, 2 to 6 times the change that
+moving the port's own scan chunk from 16 to 8 or 32 makes (2e-6 to 6e-6
+and 1.4e-5 to 1.9e-5): rounding order, not the layout.  The serving
+steps' logits are within 1e-4 of the reference's and their greedy tokens
+equal.
 Checkpoints cross meshes and packages bitwise
 (``tests/test_distributed.py``'s elastic restore): a placed state saved
 on (4, 2) restores onto (2, 4) and onto one rank; the reference's (4, 2)

@@ -9,7 +9,7 @@ that no file of the group runs long (granite and olmoe there, xlstm in
 
 import pytest
 
-from torch_sharded_steps import (MESHES, check_serving_steps,
+from torch_sharded_steps import (ONE_DEVICE_MESHES, check_serving_steps,
                                  check_train_step, run_reference)
 from torch_threads import one_intra_op_thread  # noqa: F401
 
@@ -21,7 +21,8 @@ def reference(tmp_path_factory):
     return run_reference(tmp_path_factory, ARCHS)
 
 
-@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", ONE_DEVICE_MESHES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_train_step_matches_reference(reference, arch, shape):
     check_train_step(reference, arch, shape)

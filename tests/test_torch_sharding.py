@@ -307,7 +307,9 @@ def test_differentiable_collectives_are_adjoint():
 def test_sharded_model_plans():
     """How each block runs over the model axis, decided from the rule
     table: tensor-parallel attention and MLP, EP where the experts divide
-    the axis, TP experts where they do not, whole Mamba2/xLSTM blocks."""
+    the axis, TP experts where they do not, Mamba2 / mLSTM / sLSTM blocks
+    tensor-parallel over their heads where the heads divide the axis and
+    whole where they do not."""
     from repro_torch.runtime.spmd import ShardedModel
     mesh = make_mesh((2, 2), ("data", "model"), "meta")
     pol = ShardingPolicy()
@@ -324,6 +326,17 @@ def test_sharded_model_plans():
                         pol).tensor_parallel()["L0_1_moe"] == "tp_experts"
     assert set(ShardedModel(configs.smoke("granite-3-2b"), mesh,
                             ShardingPolicy(fsdp_axes="all"))
+               .tensor_parallel().values()) == {"whole"}
+    zamba = plans["zamba2-2.7b"]
+    assert [k for k in zamba if k.endswith("_mamba2")] == \
+        [f"L{i}_0_mamba2" for i in range(6)]
+    assert set(zamba.values()) == {"tp"}
+    xlstm = ShardedModel(configs.smoke("xlstm-350m"), mesh,
+                         pol).tensor_parallel()
+    assert xlstm == {"L0_0_mlstm": "tp", "L1_0_mlstm": "tp",
+                     "L2_0_mlstm": "tp", "L3_0_slstm": "tp"}
+    # 4 heads on an 8-way model axis
+    assert set(ShardedModel(configs.smoke("xlstm-350m"), wide, pol)
                .tensor_parallel().values()) == {"whole"}
 
 
