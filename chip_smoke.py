@@ -332,6 +332,22 @@ S4. zamba2-2.7b, then xlstm-350m, at full width and depth, one request of
     after each.  Then ``mamba2_ssd`` and
     ``mlstm_chunk`` are timed at those per-rank shapes, as in phases 15
     and 18 (phases 13 and 16 hold them to their plain versions).
+S5. granite-3-2b at full width and depth (40 layers, 32/8 heads of 64,
+    bf16, random weights from seed 0), one request of 2048 prompt tokens
+    and 4 greedy decode steps over a cache of 2064 positions, on one rank
+    and then on a (1, 16) mesh (``ShardingPolicy()``): the 8 KV heads do
+    not divide the model axis, so attention runs tensor-parallel over the
+    query heads alone (2 a rank on their group's KV head, k and v
+    all-gathered) and decode attends over the KV cache sharded over time
+    (flash-decode), its decode steps fed the one-rank run's tokens.  bf16
+    logits within 5e-2 of the largest one-rank logit (its tokens and each
+    step's one-rank top-2 margin printed); exactly 640 ``flash_attention``
+    launches in the sharded prefill, 40 a rank at (1, 2048, 2/1, 64); no
+    cache byte moved between ranks in a decode step; prefill s, decode ms
+    a step and params GiB a rank printed.  Then an fp32 copy: logits
+    within 1e-4 of the largest, tokens equal.  Memory freed after each.
+    Then ``flash_attention`` is timed at the per-rank shape (phase 10
+    holds it to its plain version there).
 
 After each served model, the memory it held must be free again without
 the cyclic garbage collector (within 1 GiB of what was allocated before).
@@ -1426,10 +1442,11 @@ FLASH_CASES = (
     # a ragged pair, on the FMA instance padded to 16 columns
     (2, 64, 64, 8, 2, 8, True, None),
     (1, 130, 257, 8, 2, 8, False, None),
-    # the per-rank shapes of the sharded phases S1, S2 and S3
+    # the per-rank shapes of the sharded phases S1, S2, S3 and S5
     (1, 1024, 1024, 32, 8, 64, True, None),
     (2, 1024, 1024, 16, 4, 64, True, None),
     (1, 2048, 2048, 8, 8, 128, True, None),
+    (1, 2048, 2048, 2, 1, 64, True, None),
 )
 GRANITE_PREFILL = (1, 2048, 2048, 32, 8, 64, True, None)
 # zamba2-2.7b's shared attention: 32 heads of dim 80 over 32 kv heads
@@ -3752,11 +3769,12 @@ def serve_sharded_recurrent(arch: str, device, dtype: Optional[str] = None,
             "params_gib": [b / 2**30 for b in per_rank]}
 
 
-def _s4_prompt(cfg, device):
-    """S4's one request: ``S3_PROMPT`` tokens drawn from seed 4."""
+def _s4_prompt(cfg, device, seed: int = 4):
+    """S4's one request: ``S3_PROMPT`` tokens drawn from seed 4 (S5's from
+    ``seed`` 5)."""
     import torch
     gen = torch.Generator(device=device)
-    gen.manual_seed(4)
+    gen.manual_seed(seed)
     return torch.randint(0, cfg.vocab, (1, S3_PROMPT), generator=gen,
                          device=device)
 
@@ -3870,6 +3888,146 @@ def serve_sharded_s4(device) -> dict:
         if arch == "xlstm-350m" and dtype is None:
             out[arch + " float32 blocks"] = s4_blocks_alone(arch, device)
             freed(f"S4 {arch} float32 blocks (1, 2)", before)
+    return out
+
+
+# Phase S5: granite-3-2b served on (1, 16), where its 8 KV heads do not
+# divide the model axis: attention tensor-parallel over the query heads
+# alone (2 a rank, on the one KV head of their group), decode over the KV
+# cache sharded over time (flash-decode).  The cache holds the prompt and
+# 16 positions, a multiple of the axis, so the reference's rule shards it
+# over time.
+S5_MESH = (1, 16)
+S5_FLASH = ((1, 2048, 2, 64), (1, 2048, 1, 64), False)
+S5_FLASH_CASE = (1, 2048, 2048, 2, 1, 64, True, None)
+S5_CACHE = S3_PROMPT + 16
+S5_PLANS = {"L0_0_attn": "tp_q", "L0_1_mlp": "tp"}
+
+
+def serve_sharded_granite(device, dtype: Optional[str] = None) -> dict:
+    """Phase S5: granite-3-2b at full width and depth, one request of
+    ``S3_PROMPT`` tokens and ``S3_DECODE`` greedy decode steps over a
+    cache of ``S5_CACHE`` positions, on one rank and then on ``S5_MESH``
+    (``ShardingPolicy()``), the sharded decode steps fed the one-rank
+    run's tokens; with ``dtype``, a copy of the model in that dtype.  The
+    sharded logits lie within ``SERVE_LOGIT_RTOL`` (bf16) or
+    ``SERVE_FP32_RTOL`` (fp32, and there the greedy tokens are equal) of
+    the largest one-rank logit; the bf16 tokens and each step's one-rank
+    top-2 margin are printed.  The sharded prefill launches
+    ``flash_attention`` exactly once a layer a rank at ``S5_FLASH``, and
+    the decode steps move no cache piece between ranks."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.runtime import sharding, steps
+    from repro_torch.runtime.sharding import ShardingPolicy
+    from repro_torch.runtime.spmd import ShardedModel
+    cfg = configs.get("granite-3-2b")
+    phase, bound = "S5 granite-3-2b", SERVE_LOGIT_RTOL
+    if dtype is not None:
+        cfg, phase = cfg.scaled(dtype=dtype), f"S5 granite-3-2b {dtype}"
+        bound = SERVE_FP32_RTOL
+    pol = ShardingPolicy()
+    net = model.init(cfg, 0, device)
+    toks = _s4_prompt(cfg, device, seed=5)
+    one = make_mesh((1, 1), ("data", "model"), device)
+    dec, _ = steps.build_decode_step(cfg, one, pol, batch=1,
+                                     cache_len=S5_CACHE)
+    one_clock: dict = {}
+    want, want_tokens = _greedy_serve(
+        steps.build_prefill_step(cfg, one, pol), dec, net,
+        lambda c: model.pad_cache(cfg, c, S5_CACHE), toks, device,
+        one_clock)
+    margins = [float(t[0] - t[1]) for t in
+               (w[0, -1].float().topk(2).values for w in want)]
+    mesh = make_mesh(S5_MESH, ("data", "model"), device)
+    plans = ShardedModel(cfg, mesh, pol).tensor_parallel()
+    if plans != S5_PLANS:
+        raise AssertionError(f"{phase}: plans {plans}, want {S5_PLANS}")
+    params = steps.place_params(net, sharding.param_shardings(mesh, net,
+                                                              pol))
+    del net
+    torch.cuda.empty_cache()
+    per_rank = sharding.placed_bytes(params, mesh)
+    prefill = steps.build_prefill_step(cfg, mesh, pol)
+    decode, template = steps.build_decode_step(cfg, mesh, pol, batch=1,
+                                               cache_len=S5_CACHE)
+    cache_sh = sharding.cache_shardings(mesh, template, pol)
+    k_sh = cache_sh["L0_0_attn"]["k"]
+    spans = {k_sh.box(r, template["L0_0_attn"]["k"].shape)[2]
+             for r in range(mesh.size)}
+    if len(spans) != mesh.size:
+        raise AssertionError(f"{phase}: KV cache not sharded over time: "
+                             f"{k_sh.spec}")
+
+    def for_decode(c):
+        placed = sharding.place(model.pad_cache(cfg, sharding.gather(c),
+                                                S5_CACHE), cache_sh)
+        mesh.reset_counts()         # count the decode steps' collectives
+        return placed
+    launched = fa.flash_attention.launches
+    clock: dict = {}
+    with _kernel_shapes() as seen:
+        got, tokens = _greedy_serve(prefill, decode, params, for_decode,
+                                    toks, device, clock, forced=want_tokens)
+    launched = fa.flash_attention.launches - launched
+    moved = sum(mesh.coll_bytes["ppermute"]) / S3_DECODE
+    decode_bytes = {k: sum(v) / S3_DECODE for k, v in
+                    mesh.coll_bytes.items() if sum(v)}
+    want_flash = {S5_FLASH: cfg.n_layers * mesh.size}
+    if dict(seen["flash_attention"]) != want_flash or \
+            launched != cfg.n_layers * mesh.size:
+        raise AssertionError(f"{phase}: flash_attention launches {launched}, "
+                             f"shapes {dict(seen['flash_attention'])}, want "
+                             f"{want_flash}")
+    if moved:
+        raise AssertionError(f"{phase}: {moved} cache bytes moved between "
+                             f"ranks a decode step")
+    scale = max(float(w.abs().max()) for w in want)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    err = max(errs)
+    if not err <= bound * scale or (dtype is not None
+                                    and tokens != want_tokens):
+        raise AssertionError(f"{phase}: max |logits - one rank| {err} "
+                             f"(bound {bound} x {scale}); tokens "
+                             f"{tokens} vs {want_tokens}")
+    log(f"{phase} on {S5_MESH}, attention over the query heads alone "
+        f"(2 a rank), decode over the time-sharded cache: params per rank "
+        f"{max(per_rank) / 2**30:.3f} GiB (of {sum(per_rank) / 2**30:.3f});"
+        f" prefill of {S3_PROMPT} tokens {clock['prefill_s']:.3f} s (one "
+        f"rank {one_clock['prefill_s']:.3f} s), decode "
+        f"{clock['decode_ms']:.3f} ms a step (one rank "
+        f"{one_clock['decode_ms']:.3f} ms); max |logits - one rank| "
+        f"{err:.4g} ({err / scale:.3g} of the largest logit, <= {bound}; "
+        f"by step {', '.join(f'{e / scale:.3g}' for e in errs)}); tokens "
+        f"{tokens} " + ("equal" if tokens == want_tokens else
+                        f"vs one rank's {want_tokens}")
+        + f"; one-rank top-2 margins "
+        f"{', '.join(f'{m:.4g}' for m in margins)}; flash_attention "
+        f"{dict(seen['flash_attention'])}; cache bytes moved a decode step "
+        f"{moved:.0f}; collective operand bytes a decode step over the "
+        f"ranks {decode_bytes}")
+    del params, prefill, decode
+    return {"max_abs_err": err, "rel_err": err / scale, **clock,
+            "one_rank": one_clock, "tokens": tokens,
+            "one_rank_tokens": want_tokens, "margins": margins,
+            "params_gib": [b / 2**30 for b in per_rank],
+            "cache_bytes_moved": moved}
+
+
+def serve_sharded_s5(device) -> dict:
+    """Phase S5 whole: granite-3-2b in bf16, then on an fp32 copy; memory
+    freed after each."""
+    import torch
+    out = {}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for dtype in (None, "float32"):
+        tag = dtype or "bfloat16"
+        out[tag] = serve_sharded_granite(device, dtype)
+        freed(f"S5 granite-3-2b {tag} {S5_MESH}", before)
     return out
 
 
@@ -4042,6 +4200,12 @@ def main() -> int:
     s4_t = {"mamba2_ssd": time_mamba2_ssd(ssd, ref, device, S4_SSD),
             "mlstm_chunk": time_mlstm_chunk(mk, ref, device, S4_MLSTM)}
     log(f"sharded phase S4: {time.perf_counter() - t_s4:.1f} s")
+    t_s5 = time.perf_counter()
+    s5, s5_launches = _run_counted(
+        f"S5 granite-3-2b {S5_MESH}", ("flash_attention",), serve_sharded_s5,
+        device)
+    s5_t = time_flash_attention(fa, ref, device, (S5_FLASH_CASE,))
+    log(f"sharded phase S5: {time.perf_counter() - t_s5:.1f} s")
     for version, v in ifs.items():
         log(f"wall IFSKer O1280 {version}: {v['s_per_step']:.6f} s/step, "
             f"peak allocated {v['peak_gib']:.2f} GiB")
@@ -4081,6 +4245,14 @@ def main() -> int:
             f"{v['decode_ms']:.3f} ms a step (one rank "
             f"{v['one_rank']['decode_ms']:.3f}); max |logits - one rank| "
             f"{v['rel_err']:.3g} of the largest")
+    for run, v in s5.items():
+        log(f"serve sharded S5 {run} {S5_MESH}: prefill "
+            f"{v['prefill_s']:.3f} s (one rank "
+            f"{v['one_rank']['prefill_s']:.3f}), decode {v['decode_ms']:.3f} "
+            f"ms a step (one rank {v['one_rank']['decode_ms']:.3f}); params "
+            f"{max(v['params_gib']):.3f} GiB a rank; cache bytes moved a "
+            f"decode step {v['cache_bytes_moved']:.0f}; max |logits - one "
+            f"rank| {v['rel_err']:.3g} of the largest")
     log(f"attention backward (plain) at {GRANITE_TRAIN}: "
         f"{grads['bwd_ms']:.3f} ms; kernel forward with lse "
         f"{grads['fwd_lse_ms']:.4f} ms, without {grads['fwd_ms']:.4f} ms")
@@ -4138,10 +4310,15 @@ def main() -> int:
         k["shard_launches"] = {"S1": s1_launches[k["name"]],
                                "S2": s2_launches[k["name"]],
                                "S3": s3_launches[k["name"]],
-                               "S4": s4_launches[k["name"]]}
+                               "S4": s4_launches[k["name"]],
+                               "S5": s5_launches[k["name"]]}
         if k["name"] in s4_t:
             k["s4_rank_shape"] = {
                 key: s4_t[k["name"]][key] for key in
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if k["name"] == "flash_attention":
+            k["s5_rank_shape"] = {
+                key: s5_t[S5_FLASH_CASE][key] for key in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -335,7 +335,18 @@ class LogicalMesh:
              ) -> List[torch.Tensor]:
         """``lax.psum`` over ``axis``: each group's values summed in axis
         order on the group's first rank, then copied to every member."""
-        self._check_values(xs, "psum")
+        return self._all_reduce(xs, axis, torch.Tensor.add_, "psum")
+
+    def pmax(self, xs: Sequence[torch.Tensor], axis: Axes
+             ) -> List[torch.Tensor]:
+        """``lax.pmax`` over ``axis``, as :meth:`psum` with the largest
+        value for the sum; counted as a ``psum`` (both are XLA's
+        all-reduce)."""
+        return self._all_reduce(
+            xs, axis, lambda a, b: torch.maximum(a, b, out=a), "pmax")
+
+    def _all_reduce(self, xs, axis, combine, what) -> List[torch.Tensor]:
+        self._check_values(xs, what)
         out: List[Optional[torch.Tensor]] = [None] * self.size
         with self.collective("psum") as outer:
             for g in self.groups(axis):
@@ -345,7 +356,7 @@ class LogicalMesh:
                 for q in g[1:]:
                     got = self._transfer(xs[q], q, root)
                     with self.on(root):
-                        total.add_(got)
+                        combine(total, got)
                 out[root] = total
                 for q in g[1:]:
                     out[q] = self._transfer(total, root, q)

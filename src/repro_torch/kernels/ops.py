@@ -132,8 +132,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return _flash_forward(q, k, v, causal, window)
 
 
-# Plain torch with no hand kernel, as in the JAX package: the decode path.
+# Plain torch with no hand kernel, as in the JAX package: the decode path
+# (and, over a time-sharded cache, its partial terms per block).
 attention_ref = ref.attention
+attention_partial = ref.attention_partial
+attention_rescale = ref.attention_rescale
 
 
 # ---------------------------------------------------------------------------

@@ -142,6 +142,60 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      kv_valid_len=None, q_offset=None, k_offset: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`attention`'s softmax over one block of the keys, whose first
+    row sits at position ``k_offset``, as partial terms (the flash-decode
+    layout: a time-sharded cache, each rank its block): (m (B, S, H), the
+    largest masked score; l (B, S, H), the sum of exp(score - m); acc (B,
+    S, H, D), the sum of exp(score - m) v), all fp32.  The masks use
+    global positions, as :func:`attention`'s.  Every block's (l, acc)
+    rescaled to the largest m (:func:`attention_rescale`) and summed give
+    the softmax's denominator and numerator over all the keys.
+
+    A masked score is ``NEG_INF``, finite, as in :func:`attention`; so a
+    block whose rows are all masked has m = ``NEG_INF`` (not -inf: no
+    ``exp(-inf - -inf)``), and its weight exp(m - max m) in the combine
+    underflows to 0 against any block with a row in reach."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    # query heads grouped by their KV head: (B, S, Hkv, H / Hkv, ·), so
+    # that the cache block is read as it is, not copied to every head
+    qg = q.float().view(B, S, Hkv, H // Hkv, D)
+    scores = torch.einsum("bsgrd,btgd->bsgrt", qg, k.float()) / (D ** 0.5)
+    dev = q.device
+    q_pos = torch.arange(S, device=dev)[None, :, None]          # (1, S, 1)
+    if q_offset is not None:
+        q_pos = q_pos + (q_offset if isinstance(q_offset, int)
+                         else q_offset.reshape(-1, 1, 1))
+    k_pos = k_offset + torch.arange(T, device=dev)[None, None, :]
+    mask = torch.ones((q_pos.shape[0], S, T), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    if kv_valid_len is not None:
+        mask &= k_pos < (kv_valid_len if isinstance(kv_valid_len, int)
+                         else kv_valid_len.reshape(-1, 1, 1))
+    scores = scores.masked_fill(~mask[:, :, None, None], NEG_INF)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    acc = torch.einsum("bsgrt,btgd->bsgrd", p, v.float())
+    return m.flatten(2), p.sum(dim=-1).flatten(2), acc.flatten(2, 3)
+
+
+def attention_rescale(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                      m_max: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block's (l, acc) of :func:`attention_partial` rescaled to the
+    largest m over all blocks, ``m_max``: summed over the blocks they are
+    the whole softmax's denominator and numerator."""
+    w = torch.exp(m - m_max)
+    return l * w, acc * w[..., None]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     return_lse: bool = False):

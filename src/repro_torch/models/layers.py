@@ -90,7 +90,13 @@ def rope_apply(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 class Attention(nn.Module):
     """GQA attention.  Prefill and training go through
     ``ops.flash_attention`` (the Hopper kernel on the card); a decode step
-    attends over the fixed-size cache through ``ops.attention_ref``."""
+    attends over the fixed-size cache through ``ops.attention_ref``.
+
+    ``forward`` is :meth:`project`, :meth:`heads`, :meth:`attend` and
+    :meth:`out`.  A tensor-parallel rank (``runtime/spmd.py``) calls them
+    with its column blocks of ``wq``, ``wk``, ``wv`` and its row block of
+    ``wo``, and puts its collectives between them; the heads are read off
+    the widths of what each method is given."""
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
@@ -103,23 +109,32 @@ class Attention(nn.Module):
         self.wv = _param((d, Hkv * dh), dt, device)
         self.wo = _param((H * dh, d), dt, device)
 
-    def forward(self, x: torch.Tensor, *, angles: torch.Tensor,
-                window: Optional[int] = None, cache: Cache = None,
-                cache_index: Optional[int] = None,
-                impl: Optional[str] = None) -> torch.Tensor:
-        """``cache`` is this block's k/v, each (B, T, Hkv, dh), written IN
-        PLACE (the JAX package returns updated copies, layers.py:118):
-        prefill (no ``cache_index``) writes positions [0, S); a decode step
-        writes at ``cache_index`` and then attends over the whole cache."""
+    def project(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``x @ wq``, ``x @ wk``, ``x @ wv``, each (B, S, its columns)."""
+        return x @ self.wq, x @ self.wk, x @ self.wv
+
+    def heads(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              angles: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The projections as heads (B, S, ·, dh), q and k rotated: every
+        one of their columns must belong to whole heads, since RoPE pairs
+        dimensions within a head."""
+        B, S, _ = q.shape
+        dh = self.cfg.head_dim
+        q = rope_apply(q.view(B, S, -1, dh), angles)
+        k = rope_apply(k.view(B, S, -1, dh), angles)
+        return q, k, v.view(B, S, -1, dh)
+
+    def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               window: Optional[int] = None, cache: Cache = None,
+               cache_index: Optional[int] = None,
+               impl: Optional[str] = None) -> torch.Tensor:
+        """Attention of q (B, S, H, dh) over k, v (B, S, Hkv, dh), query
+        head j on KV head j // (H / Hkv): (B, S, H dh).  ``cache`` as in
+        :meth:`forward`."""
         cfg = self.cfg
-        B, S, _ = x.shape
-        # the heads this block holds: all of them, or a tensor-parallel
-        # rank's (wq, wk, wv split on columns, wo on rows)
-        dh = cfg.head_dim
-        H, Hkv = self.wq.shape[1] // dh, self.wk.shape[1] // dh
-        q = rope_apply((x @ self.wq).view(B, S, H, dh), angles)
-        k = rope_apply((x @ self.wk).view(B, S, Hkv, dh), angles)
-        v = (x @ self.wv).view(B, S, Hkv, dh)
+        B, S, H, dh = q.shape
         if cache is not None and cache_index is not None:
             cache["k"][:, cache_index:cache_index + S] = k
             cache["v"][:, cache_index:cache_index + S] = v
@@ -133,7 +148,23 @@ class Attention(nn.Module):
             if cache is not None:
                 cache["k"][:, :S] = k
                 cache["v"][:, :S] = v
-        return o.reshape(B, S, H * dh) @ self.wo
+        return o.reshape(B, S, H * dh)
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        """``o @ wo`` (on a tensor-parallel rank, a partial sum)."""
+        return o @ self.wo
+
+    def forward(self, x: torch.Tensor, *, angles: torch.Tensor,
+                window: Optional[int] = None, cache: Cache = None,
+                cache_index: Optional[int] = None,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """``cache`` is this block's k/v, each (B, T, Hkv, dh), written IN
+        PLACE (the JAX package returns updated copies, layers.py:118):
+        prefill (no ``cache_index``) writes positions [0, S); a decode step
+        writes at ``cache_index`` and then attends over the whole cache."""
+        q, k, v = self.heads(*self.project(x), angles)
+        return self.out(self.attend(q, k, v, window=window, cache=cache,
+                                    cache_index=cache_index, impl=impl))
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,22 @@ and gives the single-device model's numbers up to summation order:
   part of the leaf.
 * **TP** over the model axis, Megatron-style, for attention (the shared
   attention too), MLPs and MoE: a rank keeps its column blocks of
-  ``wq``/``wk``/``wv`` (its heads; the heads must divide the axis) and
-  ``wg``/``wu`` (its ``d_ff`` slice) and its row blocks of ``wo``/``wd``,
-  so its block output is a partial sum, added over the model axis by a
-  ``psum``.
+  ``wq``/``wk``/``wv`` (its heads, where the query and the KV heads both
+  divide the axis) and ``wg``/``wu`` (its ``d_ff`` slice) and its row
+  blocks of ``wo``/``wd``, so its block output is a partial sum, added
+  over the model axis by a ``psum``.
+* **TP over the query heads** of an attention block whose query heads
+  divide the model axis and whose KV heads do not (``"tp_q"``; granite's
+  32/8 heads on 16 ranks), as the reference's ``constrain.heads`` lays it
+  out: a rank computes its columns of q, k and v from its column blocks
+  (its query heads, and a slice of the KV columns that may cut a head),
+  all-gathers k and v over the model axis, rotates whole heads only and
+  attends with its query heads over the KV heads they use (one KV head
+  when they lie in one group; where they straddle groups, the KV heads
+  repeated to one a query head).  ``wo``'s row block gives a partial sum.
+  Where the query heads do not divide the axis either, the block is
+  gathered and runs whole on every model rank, as the reference's
+  ``_fit_spec`` leaves it.
 * **SP** when ``policy.sp`` (the reference's ``Constrainer.residual``):
   between blocks a rank holds its sequence slice of the residual; the
   normed input is all-gathered over the model axis before a block and the
@@ -67,7 +79,17 @@ writes its cache in place where the rank's block is exactly what the
 block computes on (KV heads over the model axis for a tensor-parallel
 attention; a tensor-parallel Mamba2's SSM state, an mLSTM's C, n, m and an
 sLSTM's c, n, h, m, heads over the model axis), and otherwise gathers
-what it needs first and writes its part back after.  The Mamba2 conv
+what it needs first and writes its part back after.  Under ``"tp_q"`` the
+KV cache is sharded over time (its heads do not divide the axis) and
+stays in place too, as the reference's flash-decode layout: the rank
+holding a position writes its k/v row from the all-gathered k and v; in a
+decode step every rank attends with all query heads (all-gathered, one
+row) over its own time rows, with global positions in the masks
+(``ops.attention_partial``); the partial terms are combined by a max and
+two sums over the model axis, and the rank keeps its query heads' rows
+for ``wo``.  A cache whose length the axis does not divide is replicated
+over it: each rank writes the row into its copy and attends with its
+query heads over all of it.  The Mamba2 conv
 cache is the exception under TP: (R, B, K-1, d_inner + 2n), placed with
 the model axis on its K-1 dimension, which it does not divide, so every
 model rank holds all of it, while a rank computes on only its heads'
@@ -84,6 +106,7 @@ import torch
 from torch.func import functional_call
 
 from ..core.mesh import ad_all_gather, ad_psum, ad_reduce_scatter, nbytes
+from ..kernels import ops
 from ..launch.mesh import axis_size
 from ..models import layers as L
 from ..models import model
@@ -247,6 +270,10 @@ def drop_gathered_weights():
 # the sharded model
 # ---------------------------------------------------------------------------
 _TP_ATTN = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+# the same blocks, but the KV heads do not divide the model axis: a rank's
+# ``wk``/``wv`` columns are a slice of the KV columns, gathered after the
+# product (the module's note)
+_TP_ATTN_Q = dict(_TP_ATTN)
 _TP_MLP = {"wg": 1, "wu": 1, "wd": 0}
 _EP = {"wg": 0, "wu": 0, "wd": 0}
 _TP_EXPERTS = {"wg": 2, "wu": 2, "wd": 1}
@@ -338,12 +365,13 @@ class ShardedModel:
         block whole on every model rank."""
         cfg = self.cfg
         out: Dict[Tuple[str, ...], Dict[str, int]] = {}
-        heads_ok = self.T is not None and cfg.n_heads % self.nT == 0 \
-            and cfg.n_kv_heads % self.nT == 0
+        attn = {}
+        if self.T is not None and cfg.n_heads % self.nT == 0:
+            attn = _TP_ATTN if cfg.n_kv_heads % self.nT == 0 else _TP_ATTN_Q
         sh = self.shardings
         for name, _, kind in model._block_names(cfg):
             if kind in (ATTN, SWA):
-                out[("layers", name)] = _TP_ATTN if heads_ok and self._fits(
+                out[("layers", name)] = attn if self._fits(
                     sh["layers"][name], _TP_ATTN) else {}
             elif kind == MLP:
                 out[("layers", name)] = _TP_MLP if self._fits(
@@ -357,7 +385,7 @@ class ShardedModel:
                 out[("layers", name)] = keep if self._heads_divide(kind) \
                     and self._fits(sh["layers"][name], keep) else {}
         if "shared" in sh:
-            out[("shared", "attn")] = _TP_ATTN if heads_ok and self._fits(
+            out[("shared", "attn")] = attn if self._fits(
                 sh["shared"]["attn"], _TP_ATTN) else {}
             out[("shared", "mlp")] = _TP_MLP if self._fits(
                 sh["shared"]["mlp"], _TP_MLP) else {}
@@ -371,7 +399,8 @@ class ShardedModel:
         return self.T is not None and self._n_heads(kind) % self.nT == 0
 
     def _heads(self, kind: str, r: int) -> Tuple[int, int]:
-        """Rank ``r``'s heads of a tensor-parallel recurrent block."""
+        """Rank ``r``'s heads of a tensor-parallel recurrent block (or
+        its query heads of a ``"tp_q"`` attention block: ``kind`` ATTN)."""
         n = self._n_heads(kind) // self.nT
         return self._t(r) * n, (self._t(r) + 1) * n
 
@@ -389,12 +418,13 @@ class ShardedModel:
 
     def tensor_parallel(self) -> Dict[str, str]:
         """How each block kind runs over the model axis: ``"tp"``,
-        ``"ep"``, ``"tp_experts"`` or ``"whole"`` (for the docs and
-        tests)."""
+        ``"tp_q"`` (attention over the query heads alone), ``"ep"``,
+        ``"tp_experts"`` or ``"whole"`` (for the docs and tests)."""
         out = {}
         for (_, name), keep in self.keep.items():
             out[name] = ("ep" if keep is _EP else "tp_experts"
-                         if keep is _TP_EXPERTS else "tp" if keep
+                         if keep is _TP_EXPERTS else "tp_q"
+                         if keep is _TP_ATTN_Q else "tp" if keep
                          else "whole")
         return out
 
@@ -542,6 +572,23 @@ class ShardedModel:
                               (uses[r][k], take)))
         return uses, backs
 
+    def _time_blocks(self, cache: Dict[str, Placed], u: int, rows):
+        """Under ``"tp_q"``: each rank's own block of one attention
+        block's KV cache in unit ``u``, in place ({"k", "v"}: (B_r, T_r,
+        Hkv, dh) views), and the position of its first time row (0 on
+        every rank where the cache is replicated over the model axis)."""
+        caches, starts = [], []
+        for r in range(self.mesh.size):
+            box = cache["k"].box(r)
+            whole = tuple((0, n) for n in cache["k"].shape[3:])
+            if tuple(box[1]) != tuple(rows[r]) or tuple(box[3:]) != whole:
+                raise ValueError(f"rank {r}'s KV cache block {box} is not "
+                                 f"its batch rows {rows[r]} whole but "
+                                 f"for time")
+            caches.append({k: leaf.blocks[r][u] for k, leaf in cache.items()})
+            starts.append(box[2][0])
+        return caches, starts
+
     def _write_back(self, backs) -> None:
         mesh = self.mesh
         for leaf, r, use, t, boxes, cut in backs:
@@ -567,15 +614,119 @@ class ShardedModel:
             lambda r, w, x: functional_call(module, w, (x,)), ws, xs)
 
     def _attention(self, key, module, tree, repeat, xin, *, angles, window,
-                   caches, cache_index):
+                   caches, cache_index, starts=None):
         keep = self.keep[key]
         ws = self._use_tree(tree, keep, repeat)
+        if keep is _TP_ATTN_Q:
+            return self._attention_q(module, ws, xin, angles=angles,
+                                     window=window, caches=caches,
+                                     starts=starts,
+                                     cache_index=cache_index), True
         cs = caches if caches is not None else [None] * self.mesh.size
         hs = self._per_rank(lambda r, w, x, c: functional_call(
             module, w, (x,), dict(angles=angles, window=window, cache=c,
                                   cache_index=cache_index)),
             ws, xin, cs)
         return hs, bool(keep)
+
+    def _kv_of(self, r: int, k: torch.Tensor) -> torch.Tensor:
+        """Of ``k`` (or v; (B, ·, Hkv, dh)), the KV heads that rank
+        ``r``'s query heads use under ``"tp_q"``: the one KV head of their
+        group, or where they straddle groups one KV head a query head,
+        repeated as ``ref.attention`` repeats them, so that query head j of
+        the rank attends over KV head j."""
+        rep = self.cfg.n_heads // self.cfg.n_kv_heads
+        h0, h1 = self._heads(ATTN, r)
+        if h0 // rep == (h1 - 1) // rep:
+            return k.narrow(2, h0 // rep, 1)
+        idx = torch.tensor([h // rep for h in range(h0, h1)],
+                           device=k.device)
+        return k.index_select(2, idx)
+
+    @staticmethod
+    def _write_rows(kv, cache: Dict[str, torch.Tensor], start: int,
+                    pos: int) -> None:
+        """Into a rank's cache block, whose first row holds position
+        ``start``, the rows of k, v (B, S, Hkv, dh), positions [pos, pos +
+        S), that fall in it."""
+        _, k, v = kv
+        a = max(pos, start)
+        b = min(pos + k.shape[1], start + cache["k"].shape[1])
+        if a < b:
+            cache["k"][:, a - start:b - start] = k[:, a - pos:b - pos]
+            cache["v"][:, a - start:b - start] = v[:, a - pos:b - pos]
+
+    def _attention_q(self, module: L.Attention, ws, xin, *, angles, window,
+                     caches, starts, cache_index) -> List[torch.Tensor]:
+        """An attention block tensor-parallel over its query heads alone
+        (``"tp_q"``, the module's note): each rank's partial output."""
+        cfg = self.cfg
+        qkv = self._per_rank(lambda r, w, x: self._call(
+            module, "project", w, x), ws, xin)
+        flash_decode = cache_index is not None and caches is not None \
+            and any(starts)
+        # a rank's k / v columns may cut a head: gather them before RoPE
+        # (and for flash-decode q too: every query head, one row)
+        if flash_decode:
+            qkv = self._gather_columns(qkv)
+        else:
+            qkv = self._per_rank(lambda r, t, kv: (t[0],) + kv, qkv,
+                                 self._gather_columns([t[1:] for t in qkv]))
+        hd = self._per_rank(lambda r, t: module.heads(*t, angles), qkv)
+        if caches is not None:
+            pos = 0 if cache_index is None else cache_index
+            self._per_rank(lambda r, h, c, t0: self._write_rows(
+                h, c, t0, pos), hd, caches, starts)
+        if flash_decode:
+            o = self._flash_decode(hd, caches, starts, window, cache_index)
+        elif cache_index is not None and caches is not None:
+            o = self._per_rank(lambda r, h, c: ops.attention_ref(
+                h[0], self._kv_of(r, c["k"]), self._kv_of(r, c["v"]),
+                causal=cfg.causal, window=window,
+                kv_valid_len=cache_index + h[0].shape[1],
+                q_offset=cache_index).flatten(2), hd, caches)
+        else:
+            o = self._per_rank(lambda r, h: module.attend(
+                h[0], self._kv_of(r, h[1]), self._kv_of(r, h[2]),
+                window=window), hd)
+        return self._per_rank(lambda r, w, o_: self._call(
+            module, "out", w, o_), ws, o)
+
+    def _gather_columns(self, parts) -> List[Tuple[torch.Tensor, ...]]:
+        """Each rank's tensors (B, S, c_i) gathered over the model axis on
+        their columns, in one all-gather: (B, S, T c_i) each, the blocks
+        in axis order."""
+        widths = [t.shape[-1] for t in parts[0]]
+        packed = self._per_rank(lambda r, p: torch.cat(p, dim=-1)
+                                .unsqueeze(2), parts)
+        got = ad_all_gather(self.mesh, packed, self.T, dim=2)
+        return self._per_rank(lambda r, g: tuple(
+            t.flatten(2) for t in g.split(widths, dim=-1)), got)
+
+    def _flash_decode(self, hd, caches, starts, window, cache_index
+                      ) -> List[torch.Tensor]:
+        """Attention of every query head over a time-sharded KV cache:
+        each rank's partial terms over its own rows, the largest score
+        over the model axis (a ``pmax``) and the rescaled sums added over
+        it (two sums in one ``psum``); each rank's output is its query
+        heads' (B, S, H / T dh)."""
+        cfg, mesh = self.cfg, self.mesh
+        S = hd[0][0].shape[1]
+        parts = self._per_rank(lambda r, h, c, t0: ops.attention_partial(
+            h[0], c["k"], c["v"], causal=cfg.causal, window=window,
+            kv_valid_len=cache_index + S, q_offset=cache_index, k_offset=t0),
+            hd, caches, starts)
+        m_max = mesh.pmax([p[0] for p in parts], self.T)
+
+        def rescaled(r, p, m):
+            den, num = ops.attention_rescale(*p, m)
+            return torch.cat([den[..., None], num], dim=-1)
+        sums = mesh.psum(self._per_rank(rescaled, parts, m_max), self.T)
+
+        def own(r, t):
+            t = t[:, :, slice(*self._heads(ATTN, r))]
+            return (t[..., 1:] / t[..., :1]).to(hd[r][0].dtype).flatten(2)
+        return self._per_rank(own, sums)
 
     def _mlp(self, key, module, tree, repeat, xin):
         keep = self.keep[key]
@@ -659,7 +810,8 @@ class ShardedModel:
         return self._per_rank(lambda r, w, m, q: self._call(
             module, "project", w, m[0], q), ws, mixed, sumsq), True
 
-    def _shared(self, tree, xs, x0s, sp, *, angles, caches, cache_index):
+    def _shared(self, tree, xs, x0s, sp, *, angles, caches, cache_index,
+                starts):
         """Zamba2's shared block: concat(x, x0) @ win, attention and an
         MLP, each with its residual; returns its output in the residual's
         layout."""
@@ -673,7 +825,8 @@ class ShardedModel:
         a, partial = self._attention(("shared", "attn"), shell.attn,
                                      tree["attn"], None, a_in,
                                      angles=angles, window=None,
-                                     caches=caches, cache_index=cache_index)
+                                     caches=caches, cache_index=cache_index,
+                                     starts=starts)
         if partial:
             a = ad_psum(self.mesh, a, self.T)
         h = self._per_rank(lambda r, x, y: x + y, h, a)
@@ -695,17 +848,21 @@ class ShardedModel:
                for _ in range(mesh.size)]
         for name, norm_name, kind in model._block_names(cfg):
             backs = []
-            caches = None
+            caches = starts = None
             if cache is not None and name in cache:
                 key = ("shared", "attn") if kind == SHARED_ATTN \
                     else ("layers", name)
-                caches, backs = self._cache_uses(
-                    cache[name], u, rows,
-                    *self._cache_parts(kind, key, heads))
+                if self.keep.get(key) is _TP_ATTN_Q:
+                    caches, starts = self._time_blocks(cache[name], u, rows)
+                else:
+                    caches, backs = self._cache_uses(
+                        cache[name], u, rows,
+                        *self._cache_parts(kind, key, heads))
             if kind == SHARED_ATTN:
                 hs = self._shared(params["shared"], xs, x0s, sp,
                                   angles=angles, caches=caches,
-                                  cache_index=cache_index if decode else None)
+                                  cache_index=cache_index if decode else None,
+                                  starts=starts)
                 self._write_back(backs)
                 xs = self._per_rank(lambda r, x, h: x + h, xs, hs)
                 continue
@@ -720,7 +877,7 @@ class ShardedModel:
                     ("layers", name), module, tree, u, xin, angles=angles,
                     window=cfg.sliding_window if kind == SWA else None,
                     caches=caches, cache_index=cache_index if decode
-                    else None)
+                    else None, starts=starts)
             elif kind == MLP:
                 hs, partial = self._mlp(("layers", name), module, tree, u,
                                         xin)

@@ -434,6 +434,27 @@ def test_every_smoke_cell_runs(arch):
             assert excess <= MAX_FLOP_EXCESS, (arch, excess)
 
 
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_query_head_attention_cells(kind):
+    """Smoke granite on (1, 4) ``meta`` ranks, where its attention runs
+    over the query heads alone (``"tp_q"``) and its decode cache is
+    sharded over time: the FLOPs summed over the ranks are at most
+    :data:`MAX_FLOP_EXCESS` x one rank's (2.40 train, 2.54 decode when the
+    attention ran whole on every model rank), and decode moves no cache
+    piece between ranks (98,304 bytes a rank of ``ppermute`` before)."""
+    seq, batch = SMOKE_SHAPES[kind]
+    cfg, mesh, rec = _run("granite-3-2b", kind, seq, batch, (1, 4))
+    assert ShardedModel(cfg, mesh, ShardingPolicy()).tensor_parallel()[
+        "L0_0_attn"] == "tp_q"
+    one = _run("granite-3-2b", kind, seq, batch, (1, 1))[2]
+    excess = sum(rec["per_rank"]["flops"]) / one["cost"]["flops"]
+    print(f"granite-3-2b {kind} on (1, 4): FLOPs summed over the ranks / "
+          f"one rank's = {excess:.3f}")
+    assert excess <= MAX_FLOP_EXCESS, excess
+    if kind == "decode":
+        assert mesh.coll_bytes["ppermute"] == [0] * mesh.size
+
+
 @pytest.mark.parametrize("shape", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
 def test_counts_equal_the_real_steps(shape):
     """What ``chip_smoke.py`` phase D checks on the card, on CPU ranks: the

@@ -66,6 +66,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.runtime import steps
 from repro_torch.runtime.sharding import ShardingPolicy
 from torch_sharded_steps import (_ENV, _RESTORE, MESHES, SAME_MESH,
+                                 SERVE_MESHES, TRAIN_EXTRA,
                                  check_serving_steps, check_train_step,
                                  run_reference)
 from torch_threads import one_intra_op_thread  # noqa: F401
@@ -89,6 +90,26 @@ def test_sharded_train_step_matches_reference(reference, arch, shape):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_serving_steps_match_reference(reference, arch):
     check_serving_steps(reference, arch)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    (a, s) for a in ARCHS for s in TRAIN_EXTRA.get(a, ())],
+    ids=lambda v: v if isinstance(v, str) else f"{v[0]}x{v[1]}")
+def test_sharded_train_step_query_heads_match_reference(reference, arch,
+                                                        shape):
+    """Smoke granite on (2, 4): its attention tensor-parallel over the
+    query heads alone (``"tp_q"``), the KV heads gathered."""
+    check_train_step(reference, arch, shape)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    (a, s) for a in ARCHS for s in SERVE_MESHES.get(a, ()) if s != (2, 2)],
+    ids=lambda v: v if isinstance(v, str) else f"{v[0]}x{v[1]}")
+def test_sharded_serving_steps_over_time_sharded_cache(reference, arch,
+                                                       shape):
+    """Smoke granite on (1, 4): ``"tp_q"`` attention, and decode over
+    the KV cache sharded over time (flash-decode)."""
+    check_serving_steps(reference, arch, shape)
 
 
 def test_placed_checkpoint_restores_onto_other_meshes(tmp_path):

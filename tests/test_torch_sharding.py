@@ -306,10 +306,11 @@ def test_differentiable_collectives_are_adjoint():
 
 def test_sharded_model_plans():
     """How each block runs over the model axis, decided from the rule
-    table: tensor-parallel attention and MLP, EP where the experts divide
-    the axis, TP experts where they do not, Mamba2 / mLSTM / sLSTM blocks
-    tensor-parallel over their heads where the heads divide the axis and
-    whole where they do not."""
+    table: tensor-parallel attention and MLP, attention over its query
+    heads alone where the KV heads do not divide the axis, EP where the
+    experts divide the axis, TP experts where they do not, Mamba2 / mLSTM
+    / sLSTM blocks tensor-parallel over their heads where the heads divide
+    the axis and whole where they do not."""
     from repro_torch.runtime.spmd import ShardedModel
     mesh = make_mesh((2, 2), ("data", "model"), "meta")
     pol = ShardingPolicy()
@@ -338,6 +339,20 @@ def test_sharded_model_plans():
     # 4 heads on an 8-way model axis
     assert set(ShardedModel(configs.smoke("xlstm-350m"), wide, pol)
                .tensor_parallel().values()) == {"whole"}
+    # smoke granite's 4 query heads divide a model axis of 4, its 2 KV
+    # heads do not: attention over the query heads alone; on 8 neither
+    # divides and the attention runs whole
+    for shape in ((1, 4), (2, 4)):
+        four = make_mesh(shape, ("data", "model"), "meta")
+        assert ShardedModel(configs.smoke("granite-3-2b"), four, pol) \
+            .tensor_parallel() == {"L0_0_attn": "tp_q", "L0_1_mlp": "tp"}
+    assert ShardedModel(configs.smoke("granite-3-2b"), wide, pol) \
+        .tensor_parallel() == {"L0_0_attn": "whole", "L0_1_mlp": "tp"}
+    # granite-3-2b's 32 query and 8 KV heads on the production mesh's
+    # 16-way model axis
+    sixteen = make_mesh((1, 16), ("data", "model"), "meta")
+    assert ShardedModel(configs.get("granite-3-2b"), sixteen, pol) \
+        .tensor_parallel() == {"L0_0_attn": "tp_q", "L0_1_mlp": "tp"}
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,13 @@ from repro_torch.runtime.sharding import ShardingPolicy
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("granite_3_2b", "olmoe_1b_7b", "zamba2_2p7b", "xlstm_350m")
 MESHES = ((4, 2), (2, 2), (4, 1))
+# more train meshes for some of the SAME_MESH archs: smoke granite's 4
+# query heads divide a model axis of 4 and its 2 KV heads do not, so its
+# attention runs tensor-parallel over the query heads alone ("tp_q")
+TRAIN_EXTRA = {"granite_3_2b": ((2, 4),)}
+# the serving steps' meshes: (2, 2) for every arch, and (1, 4) for smoke
+# granite, whose KV cache of S + N = 20 positions is sharded over time
+SERVE_MESHES = {"granite_3_2b": ((2, 2), (1, 4))}
 # the archs whose reference step runs on the same meshes; the others' on
 # one device, and the port's steps of those also on one rank
 SAME_MESH = ("granite_3_2b", "olmoe_1b_7b")
@@ -56,8 +63,8 @@ from repro.runtime import steps
 from repro.runtime.sharding import (ShardingPolicy, batch_shardings,
                                     cache_shardings, param_shardings)
 
-(out, archs, same_mesh, meshes, opt, (B, S, N), part,
- with_ckpt) = json.loads(sys.argv[1])
+(out, archs, same_mesh, meshes, opt, (B, S, N), part, with_ckpt, extra,
+ serve_meshes) = json.loads(sys.argv[1])
 opt_cfg = optim.OptimConfig(**opt)
 metrics = {}
 for arch in archs:
@@ -65,7 +72,8 @@ for arch in archs:
     state = steps.init_train_state(cfg, opt_cfg, jax.random.PRNGKey(0))
     save_checkpoint(os.path.join(out, arch + "_init"), state, step=0)
     batch = SyntheticLMData(cfg, batch=8, seq=32, seed=1).batch_at(0)
-    for shape in meshes if arch in same_mesh else [(1, 1)]:
+    for shape in meshes + extra.get(arch, []) if arch in same_mesh \
+            else [(1, 1)]:
         mesh = make_mesh(shape, ("data", "model"))
         tag = f"{arch}_{shape[0]}x{shape[1]}"
         pol = ShardingPolicy(remat=None) if shape != (1, 1) else \
@@ -80,36 +88,39 @@ for arch in archs:
         save_checkpoint(os.path.join(out, tag), new, step=1)
         metrics[tag] = [float(m["loss"]), float(m["grad_norm"])]
 
-    # serving on (2, 2)
+    # serving on (2, 2), and on the arch's other serving meshes
     params = model.init(cfg, jax.random.PRNGKey(0))
     save_checkpoint(os.path.join(out, arch + "_params"), params, step=0)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
     forced = rng.integers(0, cfg.vocab, (N, B)).astype(np.int32)
-    mesh = make_mesh((2, 2), ("data", "model"))
-    pol = ShardingPolicy()
-    batch = {"tokens": jnp.asarray(toks)}
-    dec_batch = {"tokens": jnp.zeros((B, 1), jnp.int32)}
-    logits_all = []
-    with mesh:
-        ps = param_shardings(mesh, jax.eval_shape(lambda: params), pol)
-        placed = jax.device_put(params, ps)
-        prefill = steps.build_prefill_step(
-            cfg, mesh, pol, abstract_batch=jax.eval_shape(lambda: batch))
-        logits, cache = prefill(placed, batch)
-        logits_all.append(np.asarray(logits))
-        cache = model.pad_cache(cfg, cache, S + N)
-        decode, a_cache = steps.build_decode_step(
-            cfg, mesh, pol, batch=B, cache_len=S + N,
-            abstract_batch=jax.eval_shape(lambda: dec_batch), donate=False)
-        cache = jax.device_put(cache, cache_shardings(mesh, a_cache, pol))
-        for i in range(N):
-            logits, cache = decode(placed, cache,
-                                   {"tokens": jnp.asarray(forced[i][:, None])},
-                                   jnp.int32(S + i))
+    for shape in serve_meshes.get(arch, [[2, 2]]):
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        pol = ShardingPolicy()
+        batch = {"tokens": jnp.asarray(toks)}
+        dec_batch = {"tokens": jnp.zeros((B, 1), jnp.int32)}
+        logits_all = []
+        with mesh:
+            ps = param_shardings(mesh, jax.eval_shape(lambda: params), pol)
+            placed = jax.device_put(params, ps)
+            prefill = steps.build_prefill_step(
+                cfg, mesh, pol, abstract_batch=jax.eval_shape(lambda: batch))
+            logits, cache = prefill(placed, batch)
             logits_all.append(np.asarray(logits))
-    np.savez(os.path.join(out, arch + "_serve.npz"), *logits_all, toks=toks,
-             forced=forced)
+            cache = model.pad_cache(cfg, cache, S + N)
+            decode, a_cache = steps.build_decode_step(
+                cfg, mesh, pol, batch=B, cache_len=S + N,
+                abstract_batch=jax.eval_shape(lambda: dec_batch),
+                donate=False)
+            cache = jax.device_put(cache, cache_shardings(mesh, a_cache, pol))
+            for i in range(N):
+                logits, cache = decode(
+                    placed, cache, {"tokens": jnp.asarray(forced[i][:, None])},
+                    jnp.int32(S + i))
+                logits_all.append(np.asarray(logits))
+        tag = "" if list(shape) == [2, 2] else f"_{shape[0]}x{shape[1]}"
+        np.savez(os.path.join(out, arch + f"_serve{tag}.npz"), *logits_all,
+                 toks=toks, forced=forced)
 
 # a bf16 smoke granite state placed on (4, 2), saved
 if with_ckpt:
@@ -159,7 +170,8 @@ def run_reference(tmp_path_factory, archs, with_ckpt: bool = False):
     proc = subprocess.run(
         [sys.executable, "-c", _REFERENCE, json.dumps(
             [str(out), list(archs), SAME_MESH, MESHES, OPT, (B, S, N), "a",
-             with_ckpt])], env=_ENV, capture_output=True, text=True,
+             with_ckpt, TRAIN_EXTRA, SERVE_MESHES])], env=_ENV,
+        capture_output=True, text=True,
         timeout=900)
     assert proc.returncode == 0, proc.stderr
     return out, json.loads((out / "metrics_a.json").read_text())
@@ -265,16 +277,19 @@ def _serve(cfg, net, mesh, toks, forced):
     return outs
 
 
-def check_serving_steps(reference, arch):
-    """The body of ``test_sharded_serving_steps_match_reference``."""
+def check_serving_steps(reference, arch, shape=(2, 2)):
+    """The body of ``test_sharded_serving_steps_match_reference``: the
+    port's serving steps on ``shape`` against the reference's on the same
+    mesh."""
     out, _ = reference
     cfg = _cfg(arch)
-    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
     ref_params, _ = ckpt.restore_checkpoint(
         str(out / f"{arch}_params"), model.params_to_reference(
             model.Model(cfg, device="meta")))
     net = model.params_from_reference(cfg, ref_params, device="cpu")
-    got = np.load(out / f"{arch}_serve.npz")
+    tag = "" if tuple(shape) == (2, 2) else f"_{shape[0]}x{shape[1]}"
+    got = np.load(out / f"{arch}_serve{tag}.npz")
     want = [got[f"arr_{i}"] for i in range(N + 1)]
     outs = _serve(cfg, net, mesh, got["toks"], got["forced"])
     for a, b in zip(outs, want):
