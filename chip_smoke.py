@@ -3548,6 +3548,147 @@ def _route_diffs(one, sharded, n_layers: int, n_ranks: int) -> list:
     return out
 
 
+@contextlib.contextmanager
+def _logit_widths():
+    """A context recording the width of every rank's logits in each
+    sharded serving step, by mode: {"prefill": [...], "decode": [...]},
+    one sorted list of the ranks' widths a step."""
+    from repro_torch.runtime import steps
+    seen: dict = {"prefill": [], "decode": []}
+    join = steps._global_logits
+
+    def recorded(net, logits, rows, mode):
+        seen[mode].append(sorted({int(t.shape[-1]) for t in logits}))
+        return join(net, logits, rows, mode)
+    steps._global_logits = recorded
+    try:
+        yield seen
+    finally:
+        steps._global_logits = join
+
+
+def _other_weight_gathers(cfg, mesh, params, pol) -> tuple:
+    """One pass's FSDP all-gathers of every weight but ``embed`` and
+    ``lm_head``, as ``ShardedModel`` plans them (a leaf whose use is not
+    its own block is gathered once a use, its block the operand): per
+    rank, (the operand bytes, those of the gathers that span every mesh
+    axis)."""
+    from repro_torch.models import model
+    from repro_torch.models.config import SHARED_ATTN
+    from repro_torch.runtime import spmd
+    net = spmd.ShardedModel(cfg, mesh, pol)
+    total, spanning = [0] * mesh.size, [0] * mesh.size
+
+    def add(tree, keep, u=None):
+        for k, leaf in tree.items():
+            leaf = leaf[u] if isinstance(leaf, tuple) else leaf
+            plan = spmd._UsePlan(leaf.sharding, leaf.shape, keep.get(k))
+            if plan.trivial:
+                continue
+            for r, b in enumerate(leaf.blocks):
+                total[r] += b.numel() * b.element_size()
+                if len(plan.sources[r]) == mesh.size:
+                    spanning[r] += b.numel() * b.element_size()
+    for u in range(cfg.repeats):
+        for name, norm_name, kind in model._block_names(cfg):
+            if kind == SHARED_ATTN:
+                sh = params["shared"]
+                add({"win": sh["win"]}, {})
+                add(sh["norm"], {})
+                add(sh["norm2"], {})
+                add(sh["attn"], net.keep[("shared", "attn")])
+                add(sh["mlp"], net.keep[("shared", "mlp")])
+                continue
+            add(params["layers"][norm_name], {}, u)
+            add(params["layers"][name], net.keep[("layers", name)], u)
+    add(params["final_norm"], {})
+    return total, spanning
+
+
+class _VocabWatch:
+    """Phases S3 and S4: the vocab over the model axis in a sharded serve.
+    ``cache_of`` wraps the serve's cache placement for decode: it reads
+    the prefill's counters, then sets the mesh's counters to 0 for the
+    decode steps; :meth:`decode` wraps the decode step to read the card's
+    peak over each step and its rise above the step's start (both ranks
+    share the card).  :meth:`check` fails unless every
+    rank's decode logits are its vocab block (V / T wide), the prefill's
+    the whole vocab, and the FSDP all-gathers of the prefill and of every
+    decode step are exactly the other weights' (so neither ``embed`` nor
+    ``lm_head`` is gathered: on (1, T) every gather is over the model
+    axis), and returns what it printed."""
+
+    def __init__(self, phase, cfg, mesh, params, pol, place) -> None:
+        self.phase, self.cfg, self.mesh = phase, cfg, mesh
+        self.params, self.place = params, place
+        self.others = sum(_other_weight_gathers(cfg, mesh, params, pol)[0])
+        self.prefill_fsdp = None
+        self.peak = self.rise = 0
+        mesh.reset_counts()
+
+    def _fsdp(self) -> int:
+        return sum(self.mesh.coll_tag_bytes.get(("all_gather", "fsdp"),
+                                                [0]))
+
+    def cache_of(self, c):
+        self.prefill_fsdp = self._fsdp()
+        placed = self.place(c)
+        self.mesh.reset_counts()
+        return placed
+
+    def decode(self, step):
+        import torch
+
+        def watched(*args):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            out = step(*args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            self.peak = max(self.peak, peak)
+            self.rise = max(self.rise, peak - start)
+            return out
+        return watched
+
+    def check(self, widths) -> dict:
+        cfg, mesh, params = self.cfg, self.mesh, self.params
+        peak, rise = self.peak, self.rise
+        T = mesh.shape["model"]
+        width = cfg.vocab // T
+        if widths["decode"] != [[width]] * S3_DECODE or \
+                widths["prefill"] != [[cfg.vocab]]:
+            raise AssertionError(f"{self.phase}: logits widths a rank "
+                                 f"{widths}, want {width} in decode")
+        fsdp = self._fsdp() / S3_DECODE
+        if self.prefill_fsdp != self.others or fsdp != self.others:
+            raise AssertionError(
+                f"{self.phase}: embed or lm_head gathered over the model "
+                f"axis: FSDP all-gather operand bytes {self.prefill_fsdp} "
+                f"in the prefill, {fsdp} a decode step; the other weights' "
+                f"{self.others}")
+        ag = sum(mesh.coll_bytes["all_gather"]) / S3_DECODE
+        head = params.get("lm_head", params["embed"])
+        former = sum(b.numel() * b.element_size() for leaf in
+                     (params["embed"], head) for b in leaf.blocks)
+        out = {"logits_width": width, "all_gather_bytes": ag,
+               "former_all_gather_bytes": ag + former,
+               "other_weight_gathers": self.others,
+               "decode_peak_gib": peak / 2**30,
+               "decode_rise_mib": rise / 2**20}
+        log(f"{self.phase} vocab over the model axis: decode logits "
+            f"{width} wide a rank (of {cfg.vocab}), prefill's whole; "
+            f"all-gather operand bytes a decode step over the ranks "
+            f"{ag / 1e6:.3f} MB (former path, reckoned: embed and lm_head "
+            f"gathered whole a pass, {(ag + former) / 1e6:.3f} MB), of "
+            f"them the other weights' FSDP gathers "
+            f"{self.others / 1e6:.3f} MB and embed / lm_head 0; card peak "
+            f"over the decode steps {peak / 2**30:.3f} GiB ({mesh.size} "
+            f"ranks on one card; a step's largest rise above its start "
+            f"{rise / 2**20:.1f} MiB)")
+        return out
+
+
 def serve_sharded_olmoe(device, dtype: Optional[str] = None) -> dict:
     """Phase S3: olmoe-1b-7b served on one rank, then on (1, 2) with EP;
     with ``dtype``, a copy of the model in that dtype (the logits' bound
@@ -3591,14 +3732,17 @@ def serve_sharded_olmoe(device, dtype: Optional[str] = None) -> dict:
     decode, template = steps.build_decode_step(cfg, mesh, pol, batch=1,
                                                cache_len=length)
     cache_sh = sharding.cache_shardings(mesh, template, pol)
+    watch = _VocabWatch(phase, cfg, mesh, params, pol,
+                        lambda c: sharding.place(model.pad_cache(
+                            cfg, sharding.gather(c), length), cache_sh))
     mg.moe_gmm.launches = fa.flash_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _kernel_shapes() as seen, _routes() as routes_sharded:
-        got, tokens = _greedy_serve(
-            prefill, decode, params,
-            lambda c: sharding.place(model.pad_cache(
-                cfg, sharding.gather(c), length), cache_sh), toks, device)
+    clock: dict = {}
+    with _kernel_shapes() as seen, _routes() as routes_sharded, \
+            _logit_widths() as widths:
+        got, tokens = _greedy_serve(prefill, watch.decode(decode), params,
+                                    watch.cache_of, toks, device, clock)
     seconds = time.perf_counter() - t0
     n, L = mesh.size, cfg.n_layers
     want_gmm = {S3_GMM_PREFILL[0]: 2 * L * n, S3_GMM_PREFILL[1]: L * n,
@@ -3617,6 +3761,7 @@ def serve_sharded_olmoe(device, dtype: Optional[str] = None) -> dict:
                              f"{dict(seen['flash_attention'])}")
     layers = _route_diffs(routes_one, routes_sharded, L, n)
     del routes_one, routes_sharded
+    vocab = watch.check(widths)
     scale = max(float(w.abs().max()) for w in want)
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     if not err <= bound * scale or tokens != want_tokens:
@@ -3629,14 +3774,16 @@ def serve_sharded_olmoe(device, dtype: Optional[str] = None) -> dict:
         f"max |logits - one rank| {err:.4g} ({err / scale:.3g} of the "
         f"largest logit, <= {bound}); tokens {tokens} equal; "
         f"moe_gmm {dict(seen['moe_gmm'])}, flash_attention "
-        f"{dict(seen['flash_attention'])} (over {n} ranks)")
+        f"{dict(seen['flash_attention'])} (over {n} ranks); decode "
+        f"{clock['decode_ms']:.3f} ms a step")
     log(f"{phase} per MoE layer of the prefill (router input's max |sharded"
         f" - one rank| / max |x|, tokens whose top-{cfg.top_k} set "
         f"differs, of {S3_PROMPT}): "
         + ", ".join(f"{i}: {d:.3g}/{f}" for i, (d, f) in enumerate(layers)))
     del params, prefill, decode
     return {"seconds": seconds, "max_abs_err": err, "rel_err": err / scale,
-            "params_gib": [b / 2**30 for b in per_rank], "layers": layers}
+            "params_gib": [b / 2**30 for b in per_rank], "layers": layers,
+            **clock, "vocab": vocab}
 
 
 # Phase S4: zamba2-2.7b and xlstm-350m served on (1, 2) with their Mamba2,
@@ -3727,14 +3874,16 @@ def serve_sharded_recurrent(arch: str, device, dtype: Optional[str] = None,
     decode, template = steps.build_decode_step(cfg, mesh, pol, batch=1,
                                                cache_len=length)
     cache_sh = sharding.cache_shardings(mesh, template, pol)
+    watch = _VocabWatch(phase, cfg, mesh, params, pol,
+                        lambda c: sharding.place(model.pad_cache(
+                            cfg, sharding.gather(c), length), cache_sh))
     before = {k: w.launches for k, w in wrappers.items()}
     clock: dict = {}
-    with _kernel_shapes() as seen:
-        got, tokens = _greedy_serve(
-            prefill, decode, params,
-            lambda c: sharding.place(model.pad_cache(
-                cfg, sharding.gather(c), length), cache_sh), toks, device,
-            clock, forced=want_tokens)
+    with _kernel_shapes() as seen, _logit_widths() as widths:
+        got, tokens = _greedy_serve(prefill, watch.decode(decode), params,
+                                    watch.cache_of, toks, device, clock,
+                                    forced=want_tokens)
+    vocab = watch.check(widths)
     want_launches = _s4_want(cfg, mesh.size)
     for name, shapes in want_launches.items():
         launched = wrappers[name].launches - before[name]
@@ -3766,7 +3915,7 @@ def serve_sharded_recurrent(arch: str, device, dtype: Optional[str] = None,
     del params, prefill, decode
     return {"max_abs_err": err, "rel_err": err / scale, **clock,
             "one_rank": one_clock,
-            "params_gib": [b / 2**30 for b in per_rank]}
+            "params_gib": [b / 2**30 for b in per_rank], "vocab": vocab}
 
 
 def _s4_prompt(cfg, device, seed: int = 4):
@@ -3969,9 +4118,13 @@ def serve_sharded_granite(device, dtype: Optional[str] = None) -> dict:
         return placed
     launched = fa.flash_attention.launches
     clock: dict = {}
-    with _kernel_shapes() as seen:
+    with _kernel_shapes() as seen, _logit_widths() as widths:
         got, tokens = _greedy_serve(prefill, decode, params, for_decode,
                                     toks, device, clock, forced=want_tokens)
+    # 16 does not divide granite's vocab: every rank's logits are whole
+    if widths["decode"] != [[cfg.vocab]] * S3_DECODE:
+        raise AssertionError(f"{phase}: decode logits widths a rank "
+                             f"{widths['decode']}, want {cfg.vocab}")
     launched = fa.flash_attention.launches - launched
     moved = sum(mesh.coll_bytes["ppermute"]) / S3_DECODE
     decode_bytes = {k: sum(v) / S3_DECODE for k, v in
@@ -4029,6 +4182,16 @@ def serve_sharded_s5(device) -> dict:
         out[tag] = serve_sharded_granite(device, dtype)
         freed(f"S5 granite-3-2b {tag} {S5_MESH}", before)
     return out
+
+
+def _vocab_line(run: dict) -> str:
+    """A served run's vocab figures (:class:`_VocabWatch`), one line."""
+    v = run["vocab"]
+    return (f"logits {v['logits_width']} wide a rank in decode; all-gather "
+            f"operand bytes a decode step {v['all_gather_bytes']:.0f} "
+            f"(former path {v['former_all_gather_bytes']:.0f}); card peak "
+            f"over the decode steps {v['decode_peak_gib']:.3f} GiB, a "
+            f"step's rise {v['decode_rise_mib']:.1f} MiB")
 
 
 def freed(arch: str, before: int) -> None:
@@ -4187,7 +4350,7 @@ def main() -> int:
         "S3 olmoe-1b-7b (1, 2)", ("flash_attention", "moe_gmm"),
         serve_sharded_olmoe, device)
     freed("S3 olmoe-1b-7b (1, 2)", before)
-    serve_sharded_olmoe(device, "float32")
+    s3_fp32 = serve_sharded_olmoe(device, "float32")
     freed("S3 olmoe-1b-7b float32 (1, 2)", before)
     time_flash_attention(fa, ref, device, S_FLASH_CASES)
     time_moe_gmm(mg, ref, device, S3_GMM_PREFILL + S3_GMM_DECODE)
@@ -4232,9 +4395,11 @@ def main() -> int:
                 f"{e['s_per_step']:.6f} s/step, {e['tokens_per_s']:.1f} "
                 f"tokens/s, peak allocated {e['peak_gib']:.2f} GiB; state "
                 f"{max(run['state_gib']):.3f} GiB a rank")
-    log(f"serve sharded S3 (1, 2): {s3['seconds']:.3f} s for prefill and "
-        f"{S3_DECODE} decode steps; params {max(s3['params_gib']):.3f} GiB "
-        f"a rank")
+    for run, v in (("bfloat16", s3), ("float32", s3_fp32)):
+        log(f"serve sharded S3 {run} (1, 2): {v['seconds']:.3f} s for "
+            f"prefill and {S3_DECODE} decode steps, decode "
+            f"{v['decode_ms']:.3f} ms a step; params "
+            f"{max(v['params_gib']):.3f} GiB a rank; " + _vocab_line(v))
     for run, v in s4.items():
         if "prefill_s" not in v:
             log(f"serve sharded S4 {run} (1, 2): {v['blocks']} blocks "
@@ -4244,7 +4409,7 @@ def main() -> int:
             f"(one rank {v['one_rank']['prefill_s']:.3f}), decode "
             f"{v['decode_ms']:.3f} ms a step (one rank "
             f"{v['one_rank']['decode_ms']:.3f}); max |logits - one rank| "
-            f"{v['rel_err']:.3g} of the largest")
+            f"{v['rel_err']:.3g} of the largest; " + _vocab_line(v))
     for run, v in s5.items():
         log(f"serve sharded S5 {run} {S5_MESH}: prefill "
             f"{v['prefill_s']:.3f} s (one rank "

@@ -280,7 +280,14 @@ def embed_inputs(cfg: ModelConfig, table: Optional[torch.Tensor],
     sharded steps call it on each rank's rows.)"""
     if cfg.frontend == "audio":
         return batch["embeds"].to(cfg.activation_dtype)
-    x = table[batch["tokens"]]
+    return patch_inputs(cfg, table[batch["tokens"]], batch, mode)
+
+
+def patch_inputs(cfg: ModelConfig, x: torch.Tensor,
+                 batch: Mapping[str, torch.Tensor], mode: str
+                 ) -> torch.Tensor:
+    """The looked-up tokens ``x`` (B, S, d) with a VLM's patch embeddings
+    in place of the first positions outside decode."""
     if cfg.frontend == "vlm" and mode != "decode" \
             and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype)

@@ -46,7 +46,7 @@ from ..launch.mesh import axis_size, dp_axes, tp_axis
 __all__ = ["ShardingPolicy", "check_policy", "P", "NamedSharding", "Placed",
            "batch_axes", "param_shardings", "batch_shardings",
            "cache_shardings", "Constrainer", "place", "gather",
-           "map_tree", "placed_bytes"]
+           "map_tree", "placed_bytes", "vocab_block"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,6 +222,16 @@ def _fit_spec(spec: P, shape: Tuple[int, ...], mesh) -> P:
     return P(*out)
 
 
+def vocab_block(sh: NamedSharding, shape: Sequence[int], dim: int, T,
+                rank: int) -> Optional[Tuple[int, int]]:
+    """Rank ``rank``'s block [lo, hi) of the vocab dimension ``dim`` of a
+    leaf placed by ``sh`` with ``shape`` (``embed``'s 0, ``lm_head``'s 1),
+    or None where the spec does not put the model axis ``T`` on it."""
+    if T is None or sh.full_spec(len(shape))[dim] != T:
+        return None
+    return sh.box(rank, shape)[dim]
+
+
 def _fit_candidates(specs, shape: Tuple[int, ...], mesh) -> P:
     """First candidate that divides cleanly; else first candidate fitted."""
     for spec in specs:
@@ -383,7 +393,8 @@ class Constrainer:
     GSPMD moves data to match; the port's sharded steps place activations
     themselves and read the two specs that decide a layout: ``residual``
     says whether the residual stream is sequence-sharded between blocks
-    (SP), ``logits`` how the loss's logits are split.  (Where the
+    (SP), ``logits`` how the loss's logits are split and whether
+    decode's are split over the vocab.  (Where the
     reference constrains heads, ffn columns and experts, the port's
     blocks follow their weights' shardings.)  Each method takes a shape
     and returns the fitted spec.

@@ -66,6 +66,19 @@ and gives the single-device model's numbers up to summation order:
   column-sharded.  Mamba2 computes B and C whole on every model rank,
   the mLSTM all of ``xi`` (``wup``'s column blocks hold ``z`` on the first
   ranks and ``xi`` on the last, so it is gathered either way).
+* **The vocab over the model axis** at both ends, where the rule table
+  puts it there (``embed`` at ``P(V, F)`` with ``shard_embed_vocab``,
+  ``lm_head`` at ``P(F, T)``; the axis must divide the vocab): a rank
+  looks the tokens up in its own vocab block only, zeros for the rest,
+  and the lookups are summed over the model axis (the reference's masked
+  lookup and all-reduce); its gradient lands in the rank's block alone.
+  In decode, where the reference's ``Constrainer.logits`` splits the
+  vocab, a rank projects its rows onto its vocab block alone and returns
+  those logits (:meth:`ShardedModel.logit_vocab`; of a tied table held
+  whole, it takes its slice); prefill projects the same way and
+  all-gathers the logits over the model axis.  Neither weight is then
+  gathered over the model axis outside train, whose logits are
+  sequence-sharded and whose head gathers its weight whole.
 
 Every loss term is counted on one rank only: the LM head runs on the
 rank's slice of the sequence (the reference's sequence-sharded logits) and
@@ -114,7 +127,7 @@ from ..models.config import (ATTN, MAMBA2, MLP, MLSTM, MOE, SHARED_ATTN,
                              SLSTM, SWA, ModelConfig)
 from .sharding import (Constrainer, NamedSharding, Placed, ShardingPolicy,
                        _policy_axes, _slice, batch_axes, batch_shardings,
-                       param_shardings)
+                       param_shardings, vocab_block)
 
 __all__ = ["ShardedModel"]
 
@@ -896,19 +909,76 @@ class ShardedModel:
 
     # -- the model ------------------------------------------------------------
     def _embed(self, params, batch, mode):
+        """Each rank's residual input (its rows, whole sequence).  Where
+        ``embed``'s vocab is on the model axis, a rank looks up the tokens
+        in its own vocab block, writes zeros for the others, and the
+        blocks' lookups are summed over the model axis: one value and
+        zeros, so the sum is the whole-table lookup bitwise (up to a
+        zero's sign)."""
         cfg = self.cfg
-        table = self._use(params["embed"]) if "embed" in params \
-            else [None] * self.mesh.size
-        return self._per_rank(lambda r, e, b: model.embed_inputs(
-            cfg, e, b, mode), table, batch)
+        leaf = params.get("embed")          # None: the audio frontend
+        if leaf is None or vocab_block(leaf.sharding, leaf.shape, 0, self.T,
+                                       0) is None:
+            tables = self._use(leaf) if leaf is not None \
+                else [None] * self.mesh.size
+            return self._per_rank(lambda r, e, b: model.embed_inputs(
+                cfg, e, b, mode), tables, batch)
 
-    def _head(self, params, xs) -> List[Optional[torch.Tensor]]:
+        def lookup(r, e, b):
+            lo, hi = vocab_block(leaf.sharding, leaf.shape, 0, self.T, r)
+            tok = b["tokens"]
+            rows = e[(tok - lo).clamp(0, hi - lo - 1)]
+            return torch.where(((tok >= lo) & (tok < hi))[..., None], rows,
+                               rows.new_zeros(()))
+        xs = ad_psum(self.mesh, self._per_rank(
+            lookup, self._use(leaf, keep=0), batch), self.T)
+        return self._per_rank(lambda r, x, b: model.patch_inputs(
+            cfg, x, b, mode), xs, batch)
+
+    def logit_vocab(self, mode: str) -> List[Tuple[int, int]]:
+        """Each rank's vocab block [lo, hi) of the logits :meth:`forward`
+        returns in ``mode``: in decode its block of the model axis where
+        the reference's ``Constrainer.logits`` puts the axis on the vocab
+        (the axis divides it), else the whole vocab."""
+        V, n = self.cfg.vocab, self.mesh.size
+        if mode != "decode" or self.T is None or \
+                self.constrain.logits((1, 1, V))[2] != self.T:
+            return [(0, V)] * n
+        k = V // self.nT
+        return [(self._t(r) * k, (self._t(r) + 1) * k) for r in range(n)]
+
+    def _head(self, params, xs, mode: str = "train"
+              ) -> List[Optional[torch.Tensor]]:
+        """Each rank's logits of its normed rows ``xs``.  In train the
+        weight is gathered whole (the logits are sequence-sharded).
+        Otherwise, where the weight's vocab is on the model axis or
+        decode's logits are split over it (:meth:`logit_vocab`), a rank
+        projects onto its vocab block alone (of a tied table held whole,
+        its slice); prefill then gathers the blocks' logits over the
+        model axis, so that every rank holds the whole vocab."""
+        cfg = self.cfg
         norm = self._norm(params["final_norm"], None, xs,
                           self.shell.final_norm)
         tied = "lm_head" not in params
-        ws = self._use(params["embed" if tied else "lm_head"])
-        return self._per_rank(lambda r, w, x: model.project_out(
-            self.cfg, x, w, tied=tied), ws, norm)
+        leaf = params["embed" if tied else "lm_head"]
+        dim = 0 if tied else 1
+        blocks = self.logit_vocab(mode)
+        owned = [vocab_block(leaf.sharding, leaf.shape, dim, self.T, r)
+                 for r in range(self.mesh.size)]
+        if mode == "train" or (owned[0] is None
+                               and blocks[0] == (0, cfg.vocab)):
+            return self._per_rank(lambda r, w, x: model.project_out(
+                cfg, x, w, tied=tied), self._use(leaf), norm)
+
+        def block(r, w, x):
+            if owned[r] is None:        # the table whole: the rank's slice
+                lo, hi = blocks[r]
+                w = w.narrow(dim, lo, hi - lo)
+            return model.project_out(cfg, x, w, tied=tied)
+        logits = self._per_rank(block, self._use(leaf, keep=dim), norm)
+        if blocks[0] == (0, cfg.vocab):
+            logits = self.mesh.all_gather(logits, self.T, dim=2, tiled=True)
+        return logits
 
     def split_batch(self, batch: Dict[str, torch.Tensor]
                     ) -> Tuple[List[Dict[str, torch.Tensor]],
@@ -934,7 +1004,9 @@ class ShardedModel:
         owns no position: its positions' summed NLL over all of the
         batch's positions; the aux loss on rank 0 (0-d fp32)).
         ``"prefill"`` / ``"decode"``: returns each rank's last-position
-        logits (its rows, whole vocab) and fills ``cache`` (placed by
+        logits (its rows; the vocab block :meth:`logit_vocab` gives: in
+        decode the rank's block of the model axis where the axis divides
+        the vocab, else the whole vocab) and fills ``cache`` (placed by
         ``cache_shardings``; prefill fills positions [0, S) of it)."""
         cfg, mesh = self.cfg, self.mesh
         per, rows, rows_split = self.split_batch(batch)
@@ -977,7 +1049,7 @@ class ShardedModel:
                 if sp:
                     x = self._gather_seq(x)
                 x = [t[:, -1:] for t in x]
-                return self._head(params, x)
+                return self._head(params, x, mode)
             return self._loss(params, x, per, sp, rows_split, aux)
         finally:
             if hook is not None:

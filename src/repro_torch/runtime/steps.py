@@ -505,16 +505,20 @@ def abstract_train_state(cfg: ModelConfig,
                       opt=optim.init(model.param_tree(params)))
 
 
-def _global_logits(net: ShardedModel, logits: List[torch.Tensor],
-                   rows) -> torch.Tensor:
-    """The ranks' logits (their rows, whole vocab) as one (B, 1, V)
-    tensor on the caller's stream: each row block from its first
-    holder."""
+def _global_logits(net: ShardedModel, logits: List[torch.Tensor], rows,
+                   mode: str) -> torch.Tensor:
+    """The ranks' logits (their rows, their vocab blocks:
+    ``net.logit_vocab(mode)``) as one (B, 1, V) tensor on the caller's
+    stream: each distinct (row block, vocab block) piece from its first
+    holder, the pieces joined along V, then along B."""
     net.mesh.join()
-    seen = {}
-    for r, (lo, hi) in enumerate(rows):
-        seen.setdefault((lo, hi), r)
-    return torch.cat([logits[seen[k]] for k in sorted(seen)], dim=0)
+    seen: Dict[Tuple[Tuple[int, int], Tuple[int, int]], int] = {}
+    for r, piece in enumerate(zip(rows, net.logit_vocab(mode))):
+        seen.setdefault(tuple(map(tuple, piece)), r)
+    row_blocks = sorted({p[0] for p in seen})
+    return torch.cat([torch.cat([logits[seen[p]] for p in sorted(seen)
+                                 if p[0] == b], dim=-1)
+                      for b in row_blocks], dim=0)
 
 
 def _sharded_prefill(cfg, mesh, policy):
@@ -529,7 +533,7 @@ def _sharded_prefill(cfg, mesh, policy):
         with torch.no_grad(), mesh.region():
             logits = net.forward(params, batch, mode="prefill", cache=cache)
             _, rows, _ = net.split_batch(batch)
-            out = _global_logits(net, logits, rows)
+            out = _global_logits(net, logits, rows, "prefill")
         return out, cache
 
     return prefill
@@ -580,7 +584,7 @@ def build_decode_step(cfg: ModelConfig, mesh, policy: ShardingPolicy, *,
                                      cache=cache,
                                      cache_index=int(cache_index))
                 _, rows, _ = net.split_batch(batch_)
-                out = _global_logits(net, logits, rows)
+                out = _global_logits(net, logits, rows, "decode")
             return out, cache
 
         return sharded_decode, template
